@@ -1,0 +1,41 @@
+"""jpeg2png_tpu_torch — the JPEG smart decoder on PyTorch and CUDA.
+
+Given a JPEG, find the smoothest image that re-encodes to exactly the
+same JPEG, by minimizing
+
+    TV(u) + w * TGV2(u) + p * ||(DCT(u - u0)) / quant||^2
+
+over the feasible set Q = { u : DCT(u) in [(k-0.5)q, (k+0.5)q] } with a
+FISTA-accelerated projected subgradient method (reference:
+compute.c:406-465, README.md:99-116).  The hot loop runs as two CUDA
+kernels per iteration written for Hopper (NVIDIA H100).
+
+Layout (each module has its counterpart in the JAX package
+jpeg2png_tpu/, which stays the reference; this package imports none of
+it):
+    io/        JPEG DCT-coefficient reader (Python + numpy) and PNG writer
+    ops/       block DCT, TV/TGV2 gather-form gradients, quantization-box
+               projection, prob term, color conversion (plain PyTorch)
+    kernels/   the CUDA kernels' wrappers and plain versions; the sources
+               are in csrc/ and build at first use (kernels/_build.py)
+    models/    the FISTA projected-subgradient solver
+    utils/     config, CSV convergence logger, progress reporting
+"""
+
+__version__ = "0.1.0"
+
+from jpeg2png_tpu_torch.utils.config import SolverConfig, ChannelSettings  # noqa: F401,E402
+
+
+def resolve_device(device="cuda"):
+    """torch.device for `device`; raises RuntimeError for a CUDA device
+    when no card is present (no silent fall back to the CPU)."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "jpeg2png_tpu_torch runs on a CUDA device by default and none "
+            "is available; pass device='cpu' (--device cpu) to run the "
+            "plain PyTorch path on the CPU")
+    return dev

@@ -1,0 +1,206 @@
+"""Command-line interface, flag-for-flag compatible with the reference.
+
+Every flag of jpeg2png (reference: jpeg2png.c:27-117, parsing at
+:177-267) is honored with the same names, defaults, validation rules
+and output-naming behavior:
+
+  -o/--output, -f/--force, -w/--second-order-weight w[,cb,cr],
+  -p/--probability-weight p[,cb,cr], -i/--iterations n[,cb,cr],
+  -q/--quiet, -s/--separate-components, -t/--threads,
+  -1/--16-bits-png, -c/--csv-log, -h/--help, -V/--version
+
+plus --device {cuda,cpu}: the solve runs on the CUDA card by default
+and fails without one; --device cpu runs the plain PyTorch path.
+
+    python -m jpeg2png_tpu_torch.cli picture.jpg
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import os
+import sys
+
+from jpeg2png_tpu_torch import __version__
+from jpeg2png_tpu_torch.utils.config import (
+    DEFAULT_ITERATIONS, DEFAULT_PWEIGHT, DEFAULT_WEIGHT, SolverConfig,
+)
+
+
+def _parse_triple(s: str, conv, what: str):
+    parts = s.split(",")
+    if len(parts) not in (1, 3):
+        raise SystemExit(f"invalid {what}")
+    try:
+        vals = [conv(p) for p in parts]
+    except ValueError:
+        raise SystemExit(f"invalid {what}")
+    return vals
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="jpeg2png_tpu_torch",
+        description="Silky smooth JPEG decoding on a CUDA GPU — recover "
+        "the smoothest image that re-encodes to the input JPEG.",
+        epilog="Progress note: the solve runs on the device; the bar's "
+        "total counts iterations and advances in resumable device "
+        "chunks (per iteration for solves of <= 16 iterations, roughly "
+        "8-50 iterations each beyond that).",
+        add_help=False,
+    )
+    p.add_argument("inputs", nargs="*", metavar="picture.jpg")
+    p.add_argument("-o", "--output", action="append", default=[],
+                   metavar="picture.png",
+                   help="output file name; zero times or once per input "
+                        "(overwrites when given)")
+    p.add_argument("-f", "--force", action="store_true",
+                   help="overwrite outputs even without explicit -o")
+    p.add_argument("-w", "--second-order-weight", default=None,
+                   metavar="weight[,cb,cr]",
+                   help=f"TGV weight alpha_1 (default {DEFAULT_WEIGHT}; "
+                        "chroma defaults to 0; triple requires -s)")
+    p.add_argument("-p", "--probability-weight", default=None,
+                   metavar="pweight[,cb,cr]",
+                   help=f"DCT distance weight (default {DEFAULT_PWEIGHT})")
+    p.add_argument("-i", "--iterations", default=None,
+                   metavar="iterations[,cb,cr]",
+                   help=f"optimization steps (default {DEFAULT_ITERATIONS}; "
+                        "triple requires -s)")
+    p.add_argument("-q", "--quiet", action="store_true",
+                   help="don't show the progress bar")
+    p.add_argument("-s", "--separate-components", action="store_true",
+                   help="optimize components separately")
+    p.add_argument("-t", "--threads", type=int, default=None,
+                   help="host worker threads for multi-file runs")
+    p.add_argument("-1", "--16-bits-png", dest="png16", action="store_true",
+                   help="output 16-bit PNG")
+    p.add_argument("-c", "--csv-log", default=None, metavar="csv_log",
+                   help="write per-iteration optimization log")
+    p.add_argument("-h", "--help", action="help",
+                   help="display this help text and exit")
+    p.add_argument("-V", "--version", action="version",
+                   version=f"jpeg2png_tpu_torch version {__version__}")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="where the solve runs (default cuda; cpu runs "
+                        "the plain PyTorch path)")
+    return p
+
+
+def config_from_args(args) -> SolverConfig:
+    weights = [DEFAULT_WEIGHT, 0.0, 0.0]
+    if args.second_order_weight is not None:
+        vals = _parse_triple(args.second_order_weight, float, "weight")
+        if len(vals) == 3:
+            if not args.separate_components:
+                raise SystemExit("different weights are only possible when "
+                                 "using separated components")
+            weights = vals
+        else:
+            weights = [vals[0], 0.0, 0.0]
+
+    pweights = [DEFAULT_PWEIGHT] * 3
+    if args.probability_weight is not None:
+        vals = _parse_triple(args.probability_weight, float,
+                             "probability weight")
+        pweights = vals if len(vals) == 3 else [vals[0]] * 3
+
+    iterations = [DEFAULT_ITERATIONS] * 3
+    if args.iterations is not None:
+        vals = _parse_triple(args.iterations, int, "number of iterations")
+        if len(vals) == 3:
+            if not args.separate_components:
+                raise SystemExit("different iteration counts are only "
+                                 "possible when using separated components")
+            iterations = vals
+        else:
+            iterations = [vals[0]] * 3
+
+    return SolverConfig(
+        weights=tuple(weights),
+        pweights=tuple(pweights),
+        iterations=tuple(iterations),
+        separate_components=args.separate_components,
+    )
+
+
+def derive_output_name(infile: str) -> str:
+    """original name with .jpg/.jpeg replaced by .png (jpeg2png.c:291-301)."""
+    lower = infile.lower()
+    if lower.endswith(".jpeg"):
+        return infile[:-5] + ".png"
+    if lower.endswith(".jpg"):
+        return infile[:-4] + ".png"
+    return infile + ".png"
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if not args.inputs:
+        build_parser().print_help()
+        return 1
+
+    cfg = config_from_args(args)
+    bits = 16 if args.png16 else 8
+
+    nin = len(args.inputs)
+    nout = len(args.output)
+    if nout not in (0, nin):
+        raise SystemExit("must give output file names for all input files "
+                         "or none")
+
+    if nout:
+        outfiles = list(args.output)
+    else:
+        outfiles = []
+        for infile in args.inputs:
+            if not os.path.exists(infile):
+                raise SystemExit(f"could not open input file `{infile}`")
+            outfile = derive_output_name(infile)
+            if not args.force and os.path.exists(outfile):
+                raise SystemExit(f"not overwriting output file `{outfile}`")
+            outfiles.append(outfile)
+
+    # lazy imports so --help/--version don't pay for torch startup
+    from jpeg2png_tpu_torch import resolve_device
+    from jpeg2png_tpu_torch.pipeline import decode_file
+    from jpeg2png_tpu_torch.utils.logger import ConvergenceLogger
+    from jpeg2png_tpu_torch.utils.progress import ProgressBar
+
+    device = resolve_device(args.device)   # no card: RuntimeError, no fallback
+    csv_f = open(args.csv_log, "w") if args.csv_log else None
+    logger = ConvergenceLogger(csv_f)
+    total = (nin * cfg.iterations[0] if not cfg.separate_components
+             else nin * sum(cfg.iterations))
+    progress = None if args.quiet else ProgressBar(total)
+
+    def run_one(pair):
+        infile, outfile = pair
+        try:
+            decode_file(infile, outfile, cfg, bits, logger, progress,
+                        device=device)
+            return None
+        except (ValueError, OSError) as e:
+            return f"{infile}: {e}"
+
+    # per-image error isolation: one bad file doesn't kill the batch
+    # (an improvement over the reference, where die() exits)
+    pairs = list(zip(args.inputs, outfiles))
+    if args.threads and args.threads > 1 and nin > 1:
+        with concurrent.futures.ThreadPoolExecutor(args.threads) as pool:
+            errors = [e for e in pool.map(run_one, pairs) if e]
+    else:
+        errors = [e for e in map(run_one, pairs) if e]
+
+    if progress:
+        progress.clear()
+    if csv_f:
+        csv_f.close()
+    for e in errors:
+        print(f"jpeg2png_tpu_torch: {e}", file=sys.stderr)
+    return 1 if errors else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

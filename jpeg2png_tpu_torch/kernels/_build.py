@@ -1,0 +1,125 @@
+"""Builds the port's CUDA kernels at first use and loads them with ctypes.
+
+Each source under jpeg2png_tpu_torch/csrc/ exports a plain C interface
+(no PyTorch or Python headers), so `nvcc` compiles it in seconds into a
+shared library.  Libraries land in jpeg2png_tpu_torch/_build/ (listed in
+.gitignore), named by a hash of the source and the flags: an unchanged
+tree never rebuilds, and a changed source never loads a stale library.
+`build()` starts one `nvcc` per library, all at once, and waits for
+them.
+
+The CUDA toolkit is found through $CUDA_HOME, then /usr/local/cuda, then
+$PATH.  Nothing here runs when the package is imported: the CPU tests
+import every module on a machine without `nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+PKG = pathlib.Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                "-Xptxas", "-v"]
+
+# library name -> (source file under csrc/, extra nvcc flags)
+LIBRARIES = {
+    # -fmad=false: the stencil then rounds op for op like the plain
+    # PyTorch version (no fused multiply-adds), so the two agree to a few
+    # ulps and zero norms stay zero in both (the subgradient's 0/0 rule)
+    "grad_step": ("grad_step.cu", ["-fmad=false"]),
+    "project_step": ("project_step.cu", []),
+}
+
+_lock = threading.Lock()
+_handles: dict = {}
+# name -> compiler output of the last build in this process (ptxas prints
+# each kernel's registers, shared memory and spills)
+build_log: dict = {}
+
+
+def nvcc_path() -> str:
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels are built at first use and "
+            "need the CUDA toolkit ($CUDA_HOME or /usr/local/cuda)")
+    return found
+
+
+def _command(name: str, out: pathlib.Path) -> list:
+    src, extra = LIBRARIES[name]
+    return [nvcc_path(), *ARCH_FLAGS, *COMMON_FLAGS, *extra,
+            "-o", str(out), str(CSRC / src)]
+
+
+def library_path(name: str) -> pathlib.Path:
+    src, extra = LIBRARIES[name]
+    h = hashlib.sha256((CSRC / src).read_bytes())
+    h.update(" ".join(ARCH_FLAGS + COMMON_FLAGS + extra).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=None) -> float:
+    """Compile every library in `names` (default: all) that is not built
+    yet, one nvcc process each, all started together.  Returns the
+    seconds spent; raises RuntimeError with the compiler output if any
+    build fails."""
+    names = list(LIBRARIES) if names is None else list(names)
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        path = library_path(name)
+        if path.exists():
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (path, tmp, subprocess.Popen(
+            _command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (path, tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        build_log[name] = out
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, path)   # atomic: a concurrent build is harmless
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library `name`, built first if needed."""
+    with _lock:
+        lib = _handles.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _handles[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise on a cudaError_t returned by a launch (cudaGetLastError)."""
+    if err != 0:
+        fn = lib.j2p_error_string
+        fn.restype = ctypes.c_char_p
+        fn.argtypes = [ctypes.c_int]
+        raise RuntimeError(
+            f"{what}: CUDA launch failed: {fn(err).decode()} ({err})")
