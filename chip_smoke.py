@@ -109,22 +109,24 @@ def psnr(a, b) -> float:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of `fn()` over `reps` launches, CUDA events."""
+    """Median milliseconds of `fn()` over `reps` back-to-back launches:
+    CUDA events between consecutive launches, one synchronise at the end.
+    The host enqueues ahead of the device, so each interval is the
+    device's time for one call (timing each call alone would add the
+    wrapper's host latency to an idle device)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    events[0].record()
+    for i in range(reps):
         fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    times = sorted(events[i].elapsed_time(events[i + 1])
+                   for i in range(reps))
+    return times[reps // 2]
 
 
 def max_err(a, b) -> float:
@@ -357,7 +359,7 @@ def phase_main_path(card: str, errs):
     import torch
 
     from jpeg2png_tpu_torch.cli import main as cli_main
-    from jpeg2png_tpu_torch.io import read_jpeg
+    from jpeg2png_tpu_torch.io import encode_png, read_jpeg
     from jpeg2png_tpu_torch.kernels import grad_step, project_step
     from jpeg2png_tpu_torch.models import solver
     from jpeg2png_tpu_torch.ops.color import ycbcr_to_rgb_packed
@@ -377,10 +379,16 @@ def phase_main_path(card: str, errs):
         f"launches {launches}")
     for name, n in launches.items():
         require(n == 50, f"{name} launched {n} times, expected 50")
+    t0 = time.perf_counter()
     img = read_jpeg(SMOKE_JPEG)
+    read_s = time.perf_counter() - t0
     pix = read_own_png(out)
     require(pix.shape == (img.height, img.width, 3),
             f"output shape {pix.shape}")
+    t0 = time.perf_counter()
+    encode_png(pix)
+    png_s = time.perf_counter() - t0
+    log(f"  host: JPEG read {read_s:.3f} s, PNG encode {png_s:.3f} s")
     datas = [p.data for p in img.planes]
     quants = [p.quant for p in img.planes]
     samps = [(p.h_samp, p.w_samp) for p in img.planes]
@@ -422,8 +430,13 @@ def phase_main_path(card: str, errs):
     # per-kernel times at the main path's shapes, on a real state
     _, _, carry = solver.solve_steps(*args, nsteps=3, **kw)
     fd, fi, pgrads = carry[0], carry[1], carry[2]
+    start.record()
     prob = solver._build_problem(datas, quants, samps, 0.3, [0.001] * 3,
                                  50, True, torch.device(DEVICE))
+    end.record()
+    torch.cuda.synchronize()
+    setup_ms = start.elapsed_time(end)
+    log(f"  solver set-up (upload, initial decode, boxes): {setup_ms:.3f} ms")
     pgs = list(pgrads)
     k1_args = (fd, fi, pgs, 0.5, 0.3, H, W)
     grads, extraps, sumsq, _, _ = grad_step.fused_grad(*k1_args)
@@ -466,7 +479,8 @@ def phase_main_path(card: str, errs):
             f" ms by {records[-1]['bound_by']}, {nbytes / 1e6:.1f} MB), plain "
             f"{plain_ms:.4f} ms  [{card}]")
     return records, {"total_s": total_s, "solve_s": solve_s,
-                     "mp_iter_per_s": rate,
+                     "mp_iter_per_s": rate, "setup_ms": setup_ms,
+                     "jpeg_read_s": read_s, "png_encode_s": png_s,
                      "psnr_kernel_vs_plain": p_kp if math.isfinite(p_kp)
                      else None}
 

@@ -15,10 +15,14 @@
 // Design: one block of 256 threads per 16 x 32 output tile.
 //   1. e is staged for all channels on the tile plus a 2-pixel halo: the
 //      TGV2 gather reaches through two chained differences.
-//   2. On the tile plus a 1-pixel ring, each thread computes the joint
-//      norms' reciprocals and the TGV2 second differences once (shared).
-//   3. Each thread gathers two output pixels, writes grad and extrap once
-//      and accumulates its partial sums.
+//   2. On the tile plus a 1-pixel ring, every per-pixel term the gather
+//      reads (TV: g / |g|; TGV2: the p, q, r, center terms of the 7-point
+//      scatter) is computed once and kept in shared memory, instead of
+//      being rebuilt by the gather for each neighbour that reads it (up
+//      to six): the instructions issued, not the bytes, set the pace of
+//      the version that rebuilt them (PERF.md, PR 1).
+//   3. Each thread gathers two output pixels from those terms, writes grad
+//      and extrap once and accumulates its partial sums.
 // A block writes one row of partial sums; j2p_fused_grad then reduces the
 // rows in a fixed order (second kernel): no float atomics, so two runs
 // give the same bits.  Compiled with -fmad=false, the arithmetic rounds op
@@ -88,12 +92,14 @@ __device__ void block_sum(float (&v)[N], float* red, float* out) {
 template <int C, bool TGV>
 __global__ void __launch_bounds__(NT) grad_kernel(Params p) {
   extern __shared__ float smem[];
+  constexpr int RING = SH * SW;
   float* e_s = smem;                      // [C][EH][EW]
-  float* inv_s = e_s + C * EH * EW;       // [SH][SW]   1 / |g| (TV)
-  float* inv2_s = inv_s + SH * SW;        // [SH][SW]   1 / |G| (TGV2)
-  float* gxx_s = inv2_s + SH * SW;        // [C][SH][SW]
-  float* sym_s = gxx_s + C * SH * SW;     // [C][SH][SW]
-  float* gyy_s = sym_s + C * SH * SW;     // [C][SH][SW]
+  float* a_s = e_s + C * EH * EW;         // [C][SH][SW]  gx / |g|
+  float* b_s = a_s + C * RING;            // [C][SH][SW]  gy / |g|
+  float* p_s = b_s + C * RING;            // [C][SH][SW]  TGV2 gather terms:
+  float* q_s = p_s + C * RING;            //   p, q, r scattered to the
+  float* r_s = q_s + C * RING;            //   neighbours, c kept at home
+  float* c_s = r_s + C * RING;            //   (compute.c:158-185)
   __shared__ float red[(NT / 32) * (C + 2)];
 
   const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
@@ -102,56 +108,72 @@ __global__ void __launch_bounds__(NT) grad_kernel(Params p) {
   const size_t HW = (size_t)H * W;
 
   // 1. extrapolation on the tile + 2-pixel halo, zero outside the canvas
-  for (int i = tid; i < C * EH * EW; i += NT) {
-    const int c = i / (EH * EW), r = (i / EW) % EH, q = i % EW;
-    const int y = y0 - 2 + r, x = x0 - 2 + q;
-    float v = 0.f;
-    if (y >= 0 && y < H && x >= 0 && x < W) {
-      const size_t o = c * HW + (size_t)y * W + x;
-      const float fv = p.f[o];
-      v = fv + p.factor * (fv - p.fista[o]);
+  for (int i = tid; i < EH * EW; i += NT) {
+    const int y = y0 - 2 + i / EW, x = x0 - 2 + i % EW;
+    const bool in = y >= 0 && y < H && x >= 0 && x < W;
+    const size_t o = (size_t)y * W + x;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      float v = 0.f;
+      if (in) {
+        const float fv = p.f[c * HW + o];
+        v = fv + p.factor * (fv - p.fista[c * HW + o]);
+      }
+      e_s[c * EH * EW + i] = v;
     }
-    e_s[i] = v;
   }
   __syncthreads();
   const Tile<C> t{e_s, y0, x0, HT, WT};
 
-  // 2. joint norms (and TGV2 second differences) on the tile + 1-pixel ring
+  // 2. per-pixel terms on the tile + 1-pixel ring, each computed once:
+  //    the normalized TV differences and the TGV2 gather terms
   float acc[C + 2];
 #pragma unroll
   for (int j = 0; j < C + 2; ++j) acc[j] = 0.f;
-  for (int i = tid; i < SH * SW; i += NT) {
+  for (int i = tid; i < RING; i += NT) {
     const int r = i / SW, q = i % SW;
     const int y = y0 - 1 + r, x = x0 - 1 + q;
     const bool own = r >= 1 && r <= TH && q >= 1 && q <= TW && y < H && x < W;
+    float gx[C], gy[C];
     float gsq = 0.f;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const float a = t.gx(c, y, x), b = t.gy(c, y, x);
-      const float term = a * a + b * b;
+      gx[c] = t.gx(c, y, x);
+      gy[c] = t.gy(c, y, x);
+      const float term = gx[c] * gx[c] + gy[c] * gy[c];
       gsq = c == 0 ? term : gsq + term;
     }
     const float gn = sqrtf(gsq);
-    inv_s[i] = gn == 0.f ? 0.f : 1.f / gn;
+    const float inv = gn == 0.f ? 0.f : 1.f / gn;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      a_s[c * RING + i] = gx[c] * inv;
+      b_s[c * RING + i] = gy[c] * inv;
+    }
     if (own) acc[C] += gn;
     if (TGV) {
+      float g_xx[C], sym[C], g_yy[C];
       float n2sq = 0.f;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        const float gxc = t.gx(c, y, x), gyc = t.gy(c, y, x);
-        const float g_xx = x >= 1 ? gxc - t.gx(c, y, x - 1) : 0.f;
-        const float g_yx = (x >= 1 && x < WT) ? gyc - t.gy(c, y, x - 1) : 0.f;
-        const float g_xy = (y >= 1 && y < HT) ? gxc - t.gx(c, y - 1, x) : 0.f;
-        const float g_yy = (y >= 1 && y < HT) ? gyc - t.gy(c, y - 1, x) : 0.f;
-        const float sym = (g_xy + g_yx) * 0.5f;
-        const float term = g_xx * g_xx + 2.f * sym * sym + g_yy * g_yy;
+        g_xx[c] = x >= 1 ? gx[c] - t.gx(c, y, x - 1) : 0.f;
+        const float g_yx = (x >= 1 && x < WT) ? gy[c] - t.gy(c, y, x - 1) : 0.f;
+        const float g_xy = (y >= 1 && y < HT) ? gx[c] - t.gx(c, y - 1, x) : 0.f;
+        g_yy[c] = (y >= 1 && y < HT) ? gy[c] - t.gy(c, y - 1, x) : 0.f;
+        sym[c] = (g_xy + g_yx) * 0.5f;
+        const float term = g_xx[c] * g_xx[c] + 2.f * sym[c] * sym[c]
+                           + g_yy[c] * g_yy[c];
         n2sq = c == 0 ? term : n2sq + term;
-        gxx_s[c * SH * SW + i] = g_xx;
-        sym_s[c * SH * SW + i] = sym;
-        gyy_s[c * SH * SW + i] = g_yy;
       }
       const float n2 = sqrtf(n2sq);
-      inv2_s[i] = n2 == 0.f ? 0.f : 1.f / n2;
+      const float inv2 = n2 == 0.f ? 0.f : 1.f / n2;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        c_s[c * RING + i] = -(2.f * g_xx[c] + 2.f * sym[c] + 2.f * g_yy[c]) * inv2;
+        p_s[c * RING + i] = (g_xx[c] + sym[c]) * inv2;
+        q_s[c * RING + i] = (g_yy[c] + sym[c]) * inv2;
+        r_s[c * RING + i] = -sym[c] * inv2;
+      }
       if (own) acc[C + 1] += n2;
     }
   }
@@ -164,39 +186,32 @@ __global__ void __launch_bounds__(NT) grad_kernel(Params p) {
     const int ly = ty + k * (NT / TW);
     const int y = y0 + ly, x = x0 + tx;
     if (y >= H || x >= W) continue;
-    const int s = (ly + 1) * SW + (tx + 1);   // stage index of (y, x)
-    const float inv_c = inv_s[s], inv_l = inv_s[s - 1], inv_u = inv_s[s - SW];
+    const int s = (ly + 1) * SW + (tx + 1);   // ring index of (y, x)
     const bool in_true = y < HT && x < WT;
+    const bool up = y >= 1 && y - 1 < HT, down = y + 1 < HT;
+    const bool left = x >= 1, right = x + 1 < W;
+    const size_t o = (size_t)y * W + x;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
+      const int j = c * RING + s;
       // TV: self -(a+b), from the left +a, from above +b (compute.c:98-104)
-      const float a = t.gx(c, y, x) * inv_c;
-      const float b = t.gy(c, y, x) * inv_c;
-      const float a_l = x >= 1 ? t.gx(c, y, x - 1) * inv_l : 0.f;
-      const float b_u = (y >= 1 && y - 1 < HT) ? t.gy(c, y - 1, x) * inv_u : 0.f;
-      float g = (-(a + b) + a_l + b_u) * p.alpha;
+      const float a_l = left ? a_s[j - 1] : 0.f;
+      const float b_u = up ? b_s[j - SW] : 0.f;
+      float g = (-(a_s[j] + b_s[j]) + a_l + b_u) * p.alpha;
       if (TGV) {
-        const float* gxx = gxx_s + c * SH * SW;
-        const float* sym = sym_s + c * SH * SW;
-        const float* gyy = gyy_s + c * SH * SW;
-        auto P = [&](int j) { return (gxx[j] + sym[j]) * inv2_s[j]; };
-        auto Q = [&](int j) { return (gyy[j] + sym[j]) * inv2_s[j]; };
-        auto R = [&](int j) { return -sym[j] * inv2_s[j]; };
-        // 7-point gather of the scatter at compute.c:158-185
-        float g2 = -(2.f * gxx[s] + 2.f * sym[s] + 2.f * gyy[s]) * inv2_s[s];
-        g2 = g2 + (x + 1 < W ? P(s + 1) : 0.f);
-        g2 = g2 + (x >= 1 ? P(s - 1) : 0.f);
-        g2 = g2 + (y + 1 < HT ? Q(s + SW) : 0.f);
-        g2 = g2 + ((y >= 1 && y - 1 < HT) ? Q(s - SW) : 0.f);
-        g2 = g2 + ((x >= 1 && y + 1 < HT) ? R(s + SW - 1) : 0.f);
-        g2 = g2 + ((x + 1 < W && y >= 1 && y - 1 < HT) ? R(s - SW + 1) : 0.f);
+        float g2 = c_s[j];
+        g2 = g2 + (right ? p_s[j + 1] : 0.f);
+        g2 = g2 + (left ? p_s[j - 1] : 0.f);
+        g2 = g2 + (down ? q_s[j + SW] : 0.f);
+        g2 = g2 + (up ? q_s[j - SW] : 0.f);
+        g2 = g2 + ((left && down) ? r_s[j + SW - 1] : 0.f);
+        g2 = g2 + ((right && up) ? r_s[j - SW + 1] : 0.f);
         g = g + p.alpha2 * g2;
       }
       if (!in_true) g = 0.f;   // padding stays frozen (grad_step.py:286-293)
-      const size_t o = c * HW + (size_t)y * W + x;
-      if (p.pidx[c] >= 0) g = g + p.pgrad[p.pidx[c] * HW + (size_t)y * W + x];
-      p.grad[o] = g;
-      p.extrap[o] = t.at(c, y, x);
+      if (p.pidx[c] >= 0) g = g + p.pgrad[p.pidx[c] * HW + o];
+      p.grad[c * HW + o] = g;
+      p.extrap[c * HW + o] = t.at(c, y, x);
       acc[c] += g * g;
     }
   }
@@ -226,15 +241,18 @@ reduce_columns(const float* part, int nrows, int ncols, float* out,
 }
 
 template <int C, bool TGV>
-constexpr size_t smem_bytes() {
-  return (C * EH * EW + 2 * SH * SW + (TGV ? 3 * C * SH * SW : 0)) * sizeof(float);
-}
-// the largest case launches without cudaFuncSetAttribute's opt-in
-static_assert(smem_bytes<MAXC, true>() <= 48 * 1024, "tile too large");
-
-template <int C, bool TGV>
 cudaError_t launch(const Params& p, dim3 grid, cudaStream_t stream) {
-  grad_kernel<C, TGV><<<grid, NT, smem_bytes<C, TGV>(), stream>>>(p);
+  constexpr size_t bytes =
+      (C * EH * EW + (TGV ? 6 : 2) * C * SH * SW) * sizeof(float);
+  static_assert(bytes <= 227 * 1024, "tile exceeds a block's shared memory");
+  if (bytes > 48 * 1024) {
+    // above 48 KB only after the opt-in (70 KB at C = 4 with TGV2)
+    const cudaError_t err = cudaFuncSetAttribute(
+        grad_kernel<C, TGV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  grad_kernel<C, TGV><<<grid, NT, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -30,9 +30,10 @@
 // coefficient block and depends on nothing else.  A block of 256 threads
 // takes four horizontally neighbouring coefficient blocks of one channel,
 // one thread per coefficient (u, v): warp u reads pixel rows of all four
-// blocks, so loads are contiguous across the warp.  The step result stays
-// in registers, the transforms run through shared memory, and every input
-// is read once and every output written once.  The DCT matrix lives in
+// blocks, so loads are contiguous across the warp.  The transforms run
+// through shared memory; every input is read from device memory once
+// (the footprint's second read, for the residual, hits the caches) and
+// every output written once.  The DCT matrix lives in
 // __constant__ memory and is staged to shared memory per block (threads of
 // a warp index it by different rows).  Precision: plain f32 with fused
 // multiply-adds; the TPU kernel's bf16x3 matrix-unit split is not needed.
@@ -47,7 +48,7 @@ namespace {
 constexpr int NT = 256;   // threads: 8 coefficient rows x 4 blocks x 8 columns
 constexpr int KB = 4;     // coefficient blocks per thread block
 constexpr int MAXC = 4;
-constexpr int MAXS = 4;   // largest footprint per axis
+constexpr int MAXS = 4;   // largest footprint per axis (libjpeg's limit)
 
 // orthonormal 8-point DCT-II matrix D[k][n] = s_k cos(pi (2n+1) k / 16),
 // the float64 values rounded to f32 (ops/dct.py dct_matrix_f64)
@@ -120,21 +121,20 @@ __global__ void __launch_bounds__(NT) project_kernel(Params p) {
   const float scale = p.scales[c];
   const bool prob = ch.dq != nullptr;
 
-  // 1. normalized step on this coefficient's footprint, kept in registers
+  // 1. normalized step on this coefficient's footprint, summed for its
+  //    mean.  Step 5 reads the footprint again (from L1/L2) instead of
+  //    holding up to 16 values in registers for the whole block: fewer
+  //    registers, more resident blocks to hide memory latency.
   const int py0 = cby * 8 * sy + u * sy, px0 = bx * 8 * sx + v * sx;
-  float fm[MAXS][MAXS];
+  const float* e = p.e + c * HW;
+  const float* g = p.g + c * HW;
   float sum = 0.f;
-#pragma unroll
-  for (int i = 0; i < MAXS; ++i) {
-#pragma unroll
-    for (int j = 0; j < MAXS; ++j) {
-      fm[i][j] = 0.f;
-      if (active && i < sy && j < sx) {
-        const size_t o = c * HW + (size_t)(py0 + i) * W + (px0 + j);
-        fm[i][j] = p.e[o] - scale * p.g[o];
-        sum += fm[i][j];
+  if (active) {
+    for (int i = 0; i < sy; ++i)
+      for (int j = 0; j < sx; ++j) {
+        const size_t o = (size_t)(py0 + i) * W + (px0 + j);
+        sum += e[o] - scale * g[o];
       }
-    }
   }
   // 1/(sy*sx) is a power of two: the product is the exact quotient
   const float mean = sum * (1.f / (float)(sy * sx));
@@ -190,17 +190,13 @@ __global__ void __launch_bounds__(NT) project_kernel(Params p) {
   // 5. write the footprint: fnew (and pgrad) once per pixel
   if (active) {
     const float pg = ch.pa * pback;
-#pragma unroll
-    for (int i = 0; i < MAXS; ++i) {
-#pragma unroll
-      for (int j = 0; j < MAXS; ++j) {
-        if (i < sy && j < sx) {
-          const size_t po = (size_t)(py0 + i) * W + (px0 + j);
-          p.fnew[c * HW + po] = (fm[i][j] - mean) + back;
-          if (ch.pgrad) ch.pgrad[po] = pg;
-        }
+    for (int i = 0; i < sy; ++i)
+      for (int j = 0; j < sx; ++j) {
+        const size_t o = (size_t)(py0 + i) * W + (px0 + j);
+        const float fm = e[o] - scale * g[o];
+        p.fnew[c * HW + o] = (fm - mean) + back;
+        if (ch.pgrad) ch.pgrad[o] = pg;
       }
-    }
   }
 
   // 6. this block's distance partial, fixed-order reduction

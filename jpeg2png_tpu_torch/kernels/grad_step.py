@@ -14,9 +14,9 @@ canvases at C = P = 3 (~377 MB at 3072x2048), against ~150 flops per
 pixel.  What the design does about it: each block stages a 16x32 tile
 of the extrapolated iterate for all channels plus the stencil's 2-pixel
 halo (the TGV2 gather reaches through two chained differences) in
-shared memory, computes the per-pixel norms once on the tile plus a
-1-pixel ring, and writes grad and extrap once; nothing but the inputs
-and outputs touches device memory.  The partial sums go to one row per
+shared memory, computes every per-pixel term of the gather once on the
+tile plus a 1-pixel ring, and writes grad and extrap once; nothing but
+the inputs and outputs touches device memory.  The partial sums go to one row per
 block and a second kernel reduces them in a fixed order — no float
 atomics, so two runs give the same bits.
 

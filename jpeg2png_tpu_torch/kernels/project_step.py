@@ -29,8 +29,9 @@ block.  What the design does about it: each (8*sy x 8*sx) pixel
 footprint maps to exactly one 8x8 coefficient block and depends on
 nothing else, so a block of 256 threads takes four neighbouring
 coefficient blocks of one channel, one thread per coefficient, reads
-each input once, keeps the step result in registers and the 8x8
-transforms in shared memory, and writes each output once.  The DCT
+each input from device memory once (the footprint's second read, for
+the residual, hits the caches), keeps the 8x8 transforms in shared
+memory, and writes each output once.  The DCT
 matrix lives in __constant__ memory; the per-channel step scales are
 read from a device array (no host round trip).  The distance partials
 take the two-pass fixed-order reduction of K1.  Arithmetic is plain f32
