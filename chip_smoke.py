@@ -24,7 +24,7 @@ non-zero exit and no result line):
      then the device line last.
 
 Imports nothing of JAX or of the JAX package jpeg2png_tpu.  Writes only
-under chiprun_out/chip_smoke/ in the checkout.
+under jpeg2png_tpu_torch/_build/chip_smoke/ in the checkout.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "fixtures"
-OUT_DIR = ROOT / "chiprun_out" / "chip_smoke"
+OUT_DIR = ROOT / "jpeg2png_tpu_torch" / "_build" / "chip_smoke"
 SMOKE_JPEG = FIXTURES / "torch_smoke_art3072x2048_q30_420.jpg"
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, f32 flop/s

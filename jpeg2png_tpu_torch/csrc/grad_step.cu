@@ -20,7 +20,7 @@
 //      scatter) is computed once and kept in shared memory, instead of
 //      being rebuilt by the gather for each neighbour that reads it (up
 //      to six): the instructions issued, not the bytes, set the pace of
-//      the version that rebuilt them (PERF.md, PR 1).
+//      the version that rebuilt them (PERF.md, Findings).
 //   3. Each thread gathers two output pixels from those terms, writes grad
 //      and extrap once and accumulates its partial sums.
 // A block writes one row of partial sums; j2p_fused_grad then reduces the

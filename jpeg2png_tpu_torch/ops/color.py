@@ -2,7 +2,7 @@
 
 Matches write_png's YCbCr -> RGB with centered chroma and its exact
 clamp-then-scale order (reference: png.c:37-62): luma has +128 re-added
-by the driver first (jpeg2png.c:156-159), chroma stays centered at 0,
+by the decode loop first (jpeg2png.c:156-159), chroma stays centered at 0,
 each RGB value is clamped to [0, 255] and only then scaled by
 bitfactor = (1 << bits) / 256, so 16-bit white is 65280, not 65535.
 The float -> unsigned C cast truncates toward zero; the values are
