@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Proof that the PyTorch port runs its main path on an NVIDIA GPU.
+"""Proof that the PyTorch port runs its main paths on an NVIDIA GPU.
 
     python3 chip_smoke.py            # one CUDA card, from the repo root
 
@@ -9,18 +9,28 @@ non-zero exit and no result line):
   2. build the CUDA kernels from jpeg2png_tpu_torch/csrc (one nvcc per
      source, in parallel) and print the build seconds and ptxas report;
   3. TF32 off for the plain PyTorch versions;
-  4. each kernel against its plain version on the card, at the main
-     path's 3072x2048 4:2:0 geometry and at small odd geometries (region
-     gap, h_true < H, 4:2:2, 4:4:0, 4:1:1, prob on and off);
+  4. each kernel against its plain version on the card: K1 and K2 at the
+     3072x2048 4:2:0 geometry and small odd ones (region gap, h_true < H,
+     4:2:2, 4:4:0, 4:1:1, prob on and off); K3 on one real bucket chunk
+     of 4 serving-corpus images (dynamic extents, 1 and 3 iterations), on
+     the 3072x2048 canvas (static, 2 iterations) and on small odd
+     geometries, with the bucket padding held at exactly 0;
   5. goldens: three fixtures through the port's cli.main at -i 50 must
      reach PSNR > 45 dB against the reference binary's PNGs, and the
-     photo512 -i 5 CSV must agree with the reference on iterations 0-1;
-  6. the main path: the default-flag CLI decode of a 3072x2048 4:2:0 q30
-     JPEG with both launch counters read around it (50 each), the solve
-     timed with CUDA events on a warm second run, per-kernel medians over
-     20 launches beside their bounds and the plain versions' times, and
-     PSNR of the kernel path against the plain path;
-  7. a JSON line of end-to-end numbers, one JSON line of kernel records,
+     photo512 -i 5 CSV must agree with the reference on iterations 0-1,
+     each through both solver tiers (mega: K3; two: K1 + K2);
+  6. the single-image path: the default-flag CLI decode of a 3072x2048
+     4:2:0 q30 JPEG (the tier active_tier picks) with the launch counters
+     read around it, the same solve forced through the other tier, both
+     timed with CUDA events, PSNR between the tiers and against the plain
+     path; the per-iteration cost of both tiers at photo512, ~1 MP, ~3 MP
+     and 3072x2048 (the numbers that set solver.MEGA_MAX_PIXELS); per-kernel
+     times beside their bounds and the plain versions' times;
+  7. serving: cli.main --tpu-batch on the 48-file corpus
+     (tests/fixtures/torch_serving), 48 PNGs, K3's launch count against
+     the runner's bucket plan, every PNG > 45 dB against the same file
+     decoded alone on the two-kernel tier, and the serving numbers;
+  8. a JSON line of end-to-end numbers, one JSON line of kernel records,
      then the device line last.
 
 Imports nothing of JAX or of the JAX package jpeg2png_tpu.  Writes only
@@ -29,6 +39,7 @@ under jpeg2png_tpu_torch/_build/chip_smoke/ in the checkout.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import math
@@ -41,6 +52,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "fixtures"
 OUT_DIR = ROOT / "jpeg2png_tpu_torch" / "_build" / "chip_smoke"
 SMOKE_JPEG = FIXTURES / "torch_smoke_art3072x2048_q30_420.jpg"
+SERVING = FIXTURES / "torch_serving"
+N_SERVING = 48
+# the ~1 MP and ~3 MP points of the tier sweep: 4:2:0 corpus images
+MID_JPEGS = (SERVING / "img016_1280x960_q20_s2.jpg",
+             SERVING / "img021_2048x1536_q75_s2.jpg")
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, f32 flop/s
 # outside the tensor cores
@@ -269,9 +285,128 @@ def _k2_case(rng, H, W, samps, prob, gap_rows=0):
     return f_err
 
 
-def phase_kernels():
+def _k3_compare(label, args, nsteps, extents=None):
+    """K3 against its plain version on the same inputs.
+
+    Tolerances after one iteration (rounding differences only): iterates
+    1e-5 of their magnitude (the transforms and the norms' sums associate
+    differently; the stencil rounds op for op, -fmad=false); devq =
+    (clamp - dq)/q^2 2e-6 of the coefficients' magnitude (q >= 1, so a
+    coefficient's f32 rounding reaches devq at most 1:1); sumsq, tv, tv2
+    rtol 1e-5 (summation order); the distances rtol 1e-4, because
+    clamp - dq cancels values up to |data| * q, which magnifies each
+    term's rounding.  Over more iterations of a real image two f32
+    implementations part (the TV subgradient's 1/|g| at |g| ~ 0 in flat
+    regions turns rounding into O(1) differences of the gradient there),
+    so, as in the repo's other gates, the terms of CSV rows 0-1 (row 0,
+    and row 1's tv and tv2) keep the one-iteration tolerances and the
+    iterates must agree to PSNR > 45 dB.  Bucket padding (beyond each image's
+    extent) must be exactly 0 in f, fista and devq.  Returns the
+    iterates' max abs error."""
+    import torch
+
+    from jpeg2png_tpu_torch.kernels import iter_step
+
+    kw = {} if extents is None else {"extents": extents}
+    got = iter_step.fused_solve(*args, **kw)
+    ref = iter_step.fused_solve_plain(*args, **kw)
+    torch.cuda.synchronize()
+    samps = args[8]
+    C = len(samps)
+    for t in (got[0], got[1], got[3], *got[2]):
+        require(bool(torch.isfinite(t).all()), f"K3 {label}: non-finite")
+    f_err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+    # row 0 whole, and of row 1 what the CSV's rows 0-1 read (tv, tv2;
+    # its distances are logged a row later): row 1's gradient norms and
+    # the projection after them already see the flat-region split
+    rows_got, rows_ref = got[3][..., :2, :].clone(), ref[3][..., :2, :].clone()
+    rows_got[..., 1:, :C] = rows_ref[..., 1:, :C]
+    rows_got[..., 1:, C + 2:] = rows_ref[..., 1:, C + 2:]
+    zero = rows_ref == 0
+    require(bool((rows_got[zero] == 0).all()), f"K3 {label}: zero columns")
+    rel = torch.where(zero, 0.0, (rows_got - rows_ref).abs()
+                      / rows_ref.abs().clamp_min(1e-30))
+    rel_sums = float(rel[..., :C + 2].max())
+    rel_dist = float(rel[..., C + 2:].max())
+    require(rel_sums <= 1e-5, f"K3 {label}: sumsq/tv/tv2 rel {rel_sums}")
+    require(rel_dist <= 1e-4, f"K3 {label}: distance rel {rel_dist}")
+    if nsteps == 1:
+        f_tol = 1e-5 * float(ref[0].abs().max())
+        require(f_err <= f_tol, f"K3 {label}: iterate err {f_err} > {f_tol}")
+        coef_mag = max(float((d.to(torch.float32) * q).abs().max()
+                             + q[q < 2.0 ** 39].max())
+                       for d, q in zip(args[5], args[6]))
+        d_tol = 2e-6 * coef_mag
+        d_err = max([max_err(a, b) for a, b in zip(got[2], ref[2])] + [0.0])
+        require(d_err <= d_tol, f"K3 {label}: devq err {d_err} > {d_tol}")
+        detail = (f"iterate err {f_err:.3g} (tol {f_tol:.3g}), devq err "
+                  f"{d_err:.3g} (tol {d_tol:.3g})")
+    else:
+        p = psnr(got[0].cpu().numpy(), ref[0].cpu().numpy())
+        require(p > 45.0, f"K3 {label}: iterates PSNR {p:.2f} <= 45 dB")
+        detail = f"iterate err {f_err:.3g}, PSNR {p:.2f} dB"
+    if extents is not None:
+        prob_cs = [c for c, pa in enumerate(args[7]) if pa != 0.0]
+        for b, (h, w) in enumerate(extents.cpu().tolist()):
+            for t in (got[0][b], got[1][b]):
+                require(not t[:, h:].any() and not t[:, :, w:].any(),
+                        f"K3 {label}: image {b} padding is not 0")
+            for d, c in zip(got[2], prob_cs):
+                sy, sx = samps[c]
+                require(not d[b, h // sy:].any() and not d[b, :, w // sx:]
+                        .any(), f"K3 {label}: image {b} devq padding")
+    log(f"  K3 {label}: {detail}, rows 0-1 rel {max(rel_sums, rel_dist):.3g}")
+    return f_err
+
+
+def _k3_static_case(label, img, weight, pweights, nsteps):
+    """K3 from the plain decode of `img` (static extents), as the mega
+    tier calls it."""
+    import torch
+
+    from jpeg2png_tpu_torch.kernels import iter_step
+    from jpeg2png_tpu_torch.models import solver
+
+    prob = solver._build_problem(
+        [p.data for p in img.planes], [p.quant for p in img.planes],
+        [(p.h_samp, p.w_samp) for p in img.planes], weight, pweights[:len(
+            img.planes)], 50, True, torch.device(DEVICE))
+    devqs = [torch.zeros_like(q) for q, pa in zip(prob.qs_c, prob.p_alphas)
+             if pa != 0.0]
+    factors, _ = iter_step.fista_factors(1.0, nsteps)
+    args = (prob.f0, prob.f0, devqs, factors, prob.step_size, prob.dats_c,
+            prob.qs_c, prob.pa_sss, prob.samps, weight)
+    return _k3_compare(f"{label} {prob.H}x{prob.W} static n={nsteps}", args,
+                       nsteps)
+
+
+def _k3_bucket_case(imgs, bucket, nsteps):
+    """K3 on one real bucket chunk (dynamic extents), as solve_bucket
+    calls it."""
+    import torch
+
+    from jpeg2png_tpu_torch import runner
+    from jpeg2png_tpu_torch.kernels import iter_step
+    from jpeg2png_tpu_torch.models.solver import objective_alphas
+
+    f, dats, q_rs, ext, step = runner.prepare_chunk(imgs, bucket, 50, DEVICE)
+    samps = [(p.h_samp, p.w_samp) for p in imgs[0].planes]
+    pa, _ = objective_alphas(0.3, [0.001] * 3, 3)
+    pa_ss = [pa[c] * sy * sx for c, (sy, sx) in enumerate(samps)]
+    devqs = [torch.zeros_like(q) for q in q_rs]
+    factors, _ = iter_step.fista_factors(1.0, nsteps)
+    args = (f, f, devqs, factors, step, dats, q_rs, pa_ss, samps, 0.3)
+    exts = [tuple(e) for e in ext.cpu().tolist()]
+    return _k3_compare(f"bucket {bucket[0]}x{bucket[1]} extents {exts} "
+                       f"n={nsteps}", args, nsteps, extents=ext)
+
+
+def phase_kernels(corpus):
     import numpy as np
     import torch
+
+    from jpeg2png_tpu_torch import runner
+    from jpeg2png_tpu_torch.io import read_jpeg
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -296,7 +431,32 @@ def phase_kernels():
                  gap_rows=16),
         _k2_case(rng, 40, 64, [(1, 1)], [True]),
     ]
-    return k1[0], k2[0]
+    # K3: a real bucket chunk of 4 corpus images of different sizes
+    plan = runner.plan_buckets(corpus, [0.001] * 3)
+    key, members = max(((k, v) for k, v in plan.items() if k[0] == "dyn"),
+                       key=lambda kv: (len(kv[1]), -kv[0][1] * kv[0][2]))
+    sizes = {}
+    for i in members:
+        sizes.setdefault((corpus[i].height, corpus[i].width), i)
+    chunk = [corpus[i] for i in list(sizes.values())[:4]]
+    require(len(chunk) == 4, f"bucket {key[:3]} has < 4 distinct sizes")
+    # max abs errors of the one-iteration cases (later iterations part)
+    k3_one = [_k3_bucket_case(chunk, key[1:3], 1)]
+    _k3_bucket_case(chunk, key[1:3], 3)
+    _k3_static_case("smoke", read_jpeg(SMOKE_JPEG), 0.3, [0.001] * 3, 2)
+    for name, weight, pweights in (
+            ("odd100x52_q25_420", 0.3, [0.001] * 3),       # region gap
+            ("photo80_q30_422", 0.3, [0.001] * 3),         # 4:2:2
+            ("art120x88_q40_440", 0.3, [0.001] * 3),       # 4:4:0
+            ("art128x96_q35_411", 0.3, [0.001, 0.0, 0.001]),  # 4:1:1
+            ("gray64_q30", 0.0, [0.001]),                  # C = 1, weight 0
+            ("lineart64_q20_420", 0.0, [0.001, 0.0, 0.0])):  # prob off
+        for n in (1, 3):
+            err = _k3_static_case(name, read_jpeg(FIXTURES / f"{name}.jpg"),
+                                  weight, pweights, n)
+            if n == 1:
+                k3_one.append(err)
+    return k1[0], k2[0], max(k3_one)
 
 
 def _csv_rows(path: pathlib.Path, channel: int = 3):
@@ -308,6 +468,44 @@ def _csv_rows(path: pathlib.Path, channel: int = 3):
                       ("objective", "prob_dist", "tv", "tv2")] for r in rows])
 
 
+@contextlib.contextmanager
+def forced_tier(tier: str):
+    """Make active_tier pick `tier` for every geometry the tier takes
+    (the solver's size threshold; the CLI has no tier flag)."""
+    from jpeg2png_tpu_torch.models import solver
+
+    saved = solver.MEGA_MAX_PIXELS
+    solver.MEGA_MAX_PIXELS = 1 << 62 if tier == "mega" else 0
+    try:
+        yield
+    finally:
+        solver.MEGA_MAX_PIXELS = saved
+
+
+def _counters():
+    from jpeg2png_tpu_torch.kernels import grad_step, iter_step, project_step
+
+    return (grad_step.fused_grad, project_step.fused_project_multi,
+            iter_step.fused_solve)
+
+
+def zero_counts() -> None:
+    for fn in _counters():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in _counters()}
+
+
+def _expect(counts: dict, tier: str, n_two: int, n_mega: int, what: str):
+    want = ({"fused_grad": n_two, "fused_project_multi": n_two,
+             "fused_solve": 0} if tier == "two" else
+            {"fused_grad": 0, "fused_project_multi": 0, "fused_solve": n_mega})
+    require(counts == want, f"{what} ({tier} tier): launches {counts}, "
+                            f"expected {want}")
+
+
 def phase_goldens():
     import numpy as np
 
@@ -316,32 +514,38 @@ def phase_goldens():
 
     from jpeg2png_tpu_torch.cli import main as cli_main
 
-    for name in GOLDENS:
-        out = OUT_DIR / f"{name}_i50.png"
-        rc = cli_main([str(FIXTURES / f"{name}.jpg"), "-o", str(out), "-f",
-                       "-q", "-i", "50", "--device", DEVICE])
-        require(rc == 0, f"cli.main on {name} returned {rc}")
-        gold = decode_png((FIXTURES / "golden" / f"{name}_i50.png")
-                          .read_bytes())
-        p = psnr(read_own_png(out), gold)
-        log(f"  golden {name} i50: PSNR {p:.2f} dB")
-        require(p > 45.0, f"golden {name}: PSNR {p:.2f} <= 45 dB")
+    for tier in ("mega", "two"):
+        zero_counts()
+        with forced_tier(tier):
+            for name in GOLDENS:
+                out = OUT_DIR / f"{name}_i50_{tier}.png"
+                rc = cli_main([str(FIXTURES / f"{name}.jpg"), "-o", str(out),
+                               "-f", "-q", "-i", "50", "--device", DEVICE])
+                require(rc == 0, f"cli.main on {name} returned {rc}")
+                gold = decode_png((FIXTURES / "golden" / f"{name}_i50.png")
+                                  .read_bytes())
+                p = psnr(read_own_png(out), gold)
+                log(f"  golden {name} i50 ({tier} tier): PSNR {p:.2f} dB")
+                require(p > 45.0, f"golden {name} ({tier}): PSNR {p:.2f} dB")
 
-    name = "photo512_q10_420"
-    log_path = OUT_DIR / f"{name}_i5.csv"
-    rc = cli_main([str(FIXTURES / f"{name}.jpg"), "-o",
-                   str(OUT_DIR / f"{name}_i5.png"), "-f", "-q", "-i", "5",
-                   "-c", str(log_path), "--device", DEVICE])
-    require(rc == 0, f"cli.main -i 5 on {name} returned {rc}")
-    ours = _csv_rows(log_path)[:2]
-    gold = _csv_rows(FIXTURES / "golden" / f"{name}_i5.csv")[:2]
-    # the reference CSV gate of tests/test_e2e.py before the chaos point
-    for col, rtol, atol in ((0, 6e-3, 0.0), (2, 6e-3, 0.0), (3, 6e-3, 1e-3),
-                            (1, 5e-2, 1e-3)):
-        ok = np.allclose(ours[:, col], gold[:, col], rtol=rtol, atol=atol)
-        require(ok, f"{name} CSV column {col}: {ours[:, col]} vs "
-                    f"{gold[:, col]}")
-    log(f"  golden {name} i5 CSV rows 0-1 agree (rtol 6e-3)")
+            name = "photo512_q10_420"
+            log_path = OUT_DIR / f"{name}_i5_{tier}.csv"
+            rc = cli_main([str(FIXTURES / f"{name}.jpg"), "-o",
+                           str(OUT_DIR / f"{name}_i5_{tier}.png"), "-f", "-q",
+                           "-i", "5", "-c", str(log_path), "--device",
+                           DEVICE])
+            require(rc == 0, f"cli.main -i 5 on {name} returned {rc}")
+        ours = _csv_rows(log_path)[:2]
+        gold = _csv_rows(FIXTURES / "golden" / f"{name}_i5.csv")[:2]
+        # the reference CSV gate of tests/test_e2e.py before the chaos point
+        for col, rtol, atol in ((0, 6e-3, 0.0), (2, 6e-3, 0.0),
+                                (3, 6e-3, 1e-3), (1, 5e-2, 1e-3)):
+            ok = np.allclose(ours[:, col], gold[:, col], rtol=rtol, atol=atol)
+            require(ok, f"{name} CSV column {col} ({tier}): {ours[:, col]} "
+                        f"vs {gold[:, col]}")
+        log(f"  golden {name} i5 CSV rows 0-1 agree (rtol 6e-3, {tier} tier)")
+        # 3 one-shot decodes, then -i 5 with a CSV: 5 one-iteration chunks
+        _expect(read_counts(), tier, 3 * 50 + 5, 3 + 5, "goldens")
 
 
 def _bytes_k1(C, P, H, W, nblocks):
@@ -354,33 +558,107 @@ def _bytes_k2(C, P, H, W, samps, prob):
     return 4 * H * W * 2 * C + coef + 4 * H * W * (C + P)
 
 
+def _bound_k3(C, H, W, samps, prob, nsteps):
+    """(bytes, operations) of one K3 launch: each input read once and
+    each output written once (f, fista in and out; int16 data and quant
+    rasters in; devq in and out per prob channel; factors; the partial
+    rows), and nsteps iterations of K1's and K2's operations."""
+    coefs = [(H // sy) * (W // sx) for sy, sx in samps]
+    nbytes = (4 * 4 * C * H * W + sum(6 * n for n in coefs)
+              + sum(8 * n for n, p in zip(coefs, prob) if p)
+              + 4 * nsteps + 4 * 8 * nsteps)
+    ops = nsteps * (K1_OPS_PER_CHANNEL_PIXEL * C * H * W
+                    + K2_OPS_PER_COEF * sum(coefs))
+    return nbytes, ops
+
+
+def _record(name, src, replaces, launches, err, ms, plain_ms, nbytes, ops):
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_F32 * 1e3
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            # no single PyTorch call computes any of these fused functions
+            "library_ms": None}
+
+
+def _args(img):
+    return ([p.data for p in img.planes], [p.quant for p in img.planes],
+            [(p.h_samp, p.w_samp) for p in img.planes])
+
+
+def _solve_ms(img, tier) -> float:
+    """CUDA-event milliseconds of one warm 50-iteration default solve."""
+    import torch
+
+    from jpeg2png_tpu_torch.models import solver
+
+    args = _args(img) + (0.3, [0.001] * len(img.planes), 50)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    solver.solve_joint(*args, device=DEVICE, tier=tier)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_tier_sweep(card: str):
+    """Per-iteration cost of both tiers at photo512, ~1 MP, ~3 MP and 3072x2048
+    (50-iteration solves, warm; order two, mega, mega, two; the better of
+    each tier's two runs): the numbers behind solver.MEGA_MAX_PIXELS."""
+    from jpeg2png_tpu_torch.io import read_jpeg
+
+    sweep = []
+    for path in (FIXTURES / "photo512_q10_420.jpg", *MID_JPEGS, SMOKE_JPEG):
+        img = read_jpeg(path)
+        for tier in ("two", "mega"):
+            _solve_ms(img, tier)                      # warm
+        runs = {"two": [], "mega": []}
+        for tier in ("two", "mega", "mega", "two"):
+            runs[tier].append(_solve_ms(img, tier))
+        mp = img.height * img.width / 1e6
+        row = {"image": path.name, "mp": mp,
+               "two_ms_per_iter": min(runs["two"]) / 50,
+               "mega_ms_per_iter": min(runs["mega"]) / 50,
+               "runs_ms": runs}
+        sweep.append(row)
+        log(f"  tiers at {path.name} ({mp:.2f} MP): two "
+            f"{row['two_ms_per_iter']:.4f} ms/iter, mega "
+            f"{row['mega_ms_per_iter']:.4f} ms/iter  [{card}]")
+    return sweep
+
+
 def phase_main_path(card: str, errs):
     import numpy as np
     import torch
 
     from jpeg2png_tpu_torch.cli import main as cli_main
     from jpeg2png_tpu_torch.io import encode_png, read_jpeg
-    from jpeg2png_tpu_torch.kernels import grad_step, project_step
+    from jpeg2png_tpu_torch.kernels import grad_step, iter_step, project_step
     from jpeg2png_tpu_torch.models import solver
     from jpeg2png_tpu_torch.ops.color import ycbcr_to_rgb_packed
 
+    img = read_jpeg(SMOKE_JPEG)
+    datas, quants, samps = _args(img)
+    geoms = solver._geometry(datas, samps)
+    tier0 = solver.active_tier(geoms)
+    other = "two" if tier0 == "mega" else "mega"
     out = OUT_DIR / "torch_smoke_art3072x2048.png"
-    grad_step.fused_grad.launches = 0
-    project_step.fused_project_multi.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     rc = cli_main([str(SMOKE_JPEG), "-o", str(out), "-f", "-q",
                    "--device", DEVICE])
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = {"fused_grad": grad_step.fused_grad.launches,
-                "fused_project_multi": project_step.fused_project_multi.launches}
+    launches = read_counts()
     require(rc == 0, f"cli.main on the smoke JPEG returned {rc}")
-    log(f"  main path: cli.main default flags, {total_s:.3f} s total; "
-        f"launches {launches}")
-    for name, n in launches.items():
-        require(n == 50, f"{name} launched {n} times, expected 50")
+    log(f"  single image: cli.main default flags ({tier0} tier), "
+        f"{total_s:.3f} s total; launches {launches}")
+    _expect(launches, tier0, 50, 1, "3072x2048 CLI decode")
     t0 = time.perf_counter()
-    img = read_jpeg(SMOKE_JPEG)
+    read_jpeg(SMOKE_JPEG)
     read_s = time.perf_counter() - t0
     pix = read_own_png(out)
     require(pix.shape == (img.height, img.width, 3),
@@ -389,47 +667,66 @@ def phase_main_path(card: str, errs):
     encode_png(pix)
     png_s = time.perf_counter() - t0
     log(f"  host: JPEG read {read_s:.3f} s, PNG encode {png_s:.3f} s")
-    datas = [p.data for p in img.planes]
-    quants = [p.quant for p in img.planes]
-    samps = [(p.h_samp, p.w_samp) for p in img.planes]
-    args = (datas, quants, samps, 0.3, [0.001] * 3, 50)
-    kw = {"device": DEVICE}
-    solver.solve_joint(*args, **kw)                 # warm
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fdata, metrics = solver.solve_joint(*args, **kw)
-    end.record()
-    torch.cuda.synchronize()
-    solve_s = start.elapsed_time(end) / 1e3
-    H, W = fdata.shape[1:]
-    rate = H * W / 1e6 * 50 / solve_s
-    require(bool(torch.isfinite(fdata).all()) and np.isfinite(metrics).all(),
-            "non-finite solver output")
-    log(f"  solve (warm, CUDA events): {solve_s:.4f} s, "
-        f"{rate:.1f} MP*iter/s at {H}x{W}, 50 iterations")
 
-    # kernel path vs plain path on the card, whole solve
-    saved = solver.fused_grad, solver.fused_project_multi
-    solver.fused_grad = grad_step.fused_grad_plain
-    solver.fused_project_multi = project_step.fused_project_multi_plain
-    try:
-        fdata_plain, _ = solver.solve_joint(*args, **kw)
-    finally:
-        solver.fused_grad, solver.fused_project_multi = saved
+    args = (datas, quants, samps, 0.3, [0.001] * 3, 50)
+    zero_counts()
+    fd_other, _ = solver.solve_joint(*args, device=DEVICE, tier=other)
+    torch.cuda.synchronize()
+    counts = {tier0: launches, other: read_counts()}
+    _expect(counts[other], other, 50, 1, "3072x2048 forced solve")
+    log(f"  forced {other} tier: launches {counts[other]}")
+
+    fdata = {other: fd_other}
+    solve_ms = {}
+    for tier in (tier0, other, other, tier0):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fd, metrics = solver.solve_joint(*args, device=DEVICE, tier=tier)
+        end.record()
+        torch.cuda.synchronize()
+        solve_ms.setdefault(tier, []).append(start.elapsed_time(end))
+        fdata[tier] = fd
+        require(bool(torch.isfinite(fd).all()) and np.isfinite(metrics).all(),
+                f"non-finite solver output ({tier})")
+    H, W = fdata[tier0].shape[1:]
+    rate = {t: H * W / 1e6 * 50 / (min(v) / 1e3) for t, v in solve_ms.items()}
+    for t, v in solve_ms.items():
+        log(f"  solve ({t} tier, CUDA events): {v[0]:.3f}, {v[1]:.3f} ms, "
+            f"{rate[t]:.1f} MP*iter/s at {H}x{W}, 50 iterations  [{card}]")
 
     def pack(f):
         h, w = img.height, img.width
         return ycbcr_to_rgb_packed(f[0][:h, :w] + 128.0, f[1][:h, :w],
                                    f[2][:h, :w])
-    p_kp = psnr(pack(fdata), pack(fdata_plain))
-    log(f"  kernel path vs plain path (50 iterations): PSNR {p_kp:.2f} dB")
-    require(p_kp > 45.0, f"kernel vs plain path PSNR {p_kp:.2f} <= 45 dB")
+    p_tiers = psnr(pack(fdata["mega"]), pack(fdata["two"]))
+    log(f"  mega vs two tier (50 iterations): PSNR {p_tiers:.2f} dB")
+    require(p_tiers > 45.0, f"mega vs two tier PSNR {p_tiers:.2f} <= 45 dB")
 
-    # per-kernel times at the main path's shapes, on a real state
-    _, _, carry = solver.solve_steps(*args, nsteps=3, **kw)
+    # kernel path vs plain path on the card, whole solve, each tier
+    p_plain = {}
+    saved = (solver.fused_grad, solver.fused_project_multi,
+             solver.fused_solve)
+    solver.fused_grad = grad_step.fused_grad_plain
+    solver.fused_project_multi = project_step.fused_project_multi_plain
+    solver.fused_solve = iter_step.fused_solve_plain
+    try:
+        for tier in ("two", "mega"):
+            fd_plain, _ = solver.solve_joint(*args, device=DEVICE, tier=tier)
+            p_plain[tier] = psnr(pack(fdata[tier]), pack(fd_plain))
+    finally:
+        (solver.fused_grad, solver.fused_project_multi,
+         solver.fused_solve) = saved
+    for tier, p in p_plain.items():
+        log(f"  {tier} tier, kernel path vs plain path: PSNR {p:.2f} dB")
+        require(p > 45.0, f"{tier} kernel vs plain path PSNR {p:.2f} <= 45")
+
+    # per-kernel times at the single-image path's shapes, on a real state
+    _, _, carry = solver.solve_steps(*args, nsteps=3, device=DEVICE,
+                                     tier="two")
     fd, fi, pgrads = carry[0], carry[1], carry[2]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     start.record()
     prob = solver._build_problem(datas, quants, samps, 0.3, [0.001] * 3,
                                  50, True, torch.device(DEVICE))
@@ -437,52 +734,129 @@ def phase_main_path(card: str, errs):
     torch.cuda.synchronize()
     setup_ms = start.elapsed_time(end)
     log(f"  solver set-up (upload, initial decode, boxes): {setup_ms:.3f} ms")
-    pgs = list(pgrads)
-    k1_args = (fd, fi, pgs, 0.5, 0.3, H, W)
+    k1_args = (fd, fi, list(pgrads), 0.5, 0.3, H, W)
     grads, extraps, sumsq, _, _ = grad_step.fused_grad(*k1_args)
     scale = torch.where(sumsq == 0, 0.0, prob.step_size / torch.sqrt(sumsq))
     k2_args = (extraps, grads, scale, prob.los, prob.his, prob.dqs_c,
                prob.iqs_c, prob.pa_sss, prob.samps)
+    _, _, mcarry = solver.solve_steps(*args, nsteps=3, device=DEVICE,
+                                      tier="mega")
+    factors, _ = iter_step.fista_factors(mcarry[4], 50)
+    k3_args = (mcarry[0], mcarry[1], list(mcarry[2]), factors,
+               prob.step_size, prob.dats_c, prob.qs_c, prob.pa_sss,
+               prob.samps, 0.3)
     C, P = 3, 3
     nblocks = -(-H // grad_step.TILE_H) * -(-W // grad_step.TILE_W)
     b1 = _bytes_k1(C, P, H, W, nblocks)
     b2 = _bytes_k2(C, P, H, W, prob.samps, [True] * 3)
+    b3, ops3 = _bound_k3(C, H, W, prob.samps, [True] * 3, 50)
     ops1 = K1_OPS_PER_CHANNEL_PIXEL * C * H * W
     ops2 = K2_OPS_PER_COEF * sum(H // sy * (W // sx) for sy, sx in prob.samps)
-    records = []
-    for name, fn, plain, nbytes, ops, src, replaces, launches_n, err in (
+    timed = {}
+    for name, fn, plain, a, reps, plain_reps in (
             ("fused_grad", grad_step.fused_grad, grad_step.fused_grad_plain,
-             b1, ops1, "jpeg2png_tpu_torch/csrc/grad_step.cu",
-             "jpeg2png_tpu/kernels/grad_step.py:388", launches["fused_grad"],
-             errs[0]),
+             k1_args, 20, 5),
             ("fused_project_multi", project_step.fused_project_multi,
-             project_step.fused_project_multi_plain, b2, ops2,
-             "jpeg2png_tpu_torch/csrc/project_step.cu",
-             "jpeg2png_tpu/kernels/project_step.py:528",
-             launches["fused_project_multi"], errs[1])):
-        a = k1_args if name == "fused_grad" else k2_args
+             project_step.fused_project_multi_plain, k2_args, 20, 5),
+            ("fused_solve", iter_step.fused_solve,
+             iter_step.fused_solve_plain, k3_args, 5, 1)):
         saved_n = fn.launches
-        ms = cuda_ms(lambda: fn(*a), 20)
-        fn.launches = saved_n         # timing launches are not main-path ones
-        plain_ms = cuda_ms(lambda: plain(*a), 5)
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = ops / PEAK_F32 * 1e3
-        records.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches_n,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
-        })
-        log(f"  {name}: {ms:.4f} ms median of 20 (bound {max(t_bytes, t_ops):.4f}"
-            f" ms by {records[-1]['bound_by']}, {nbytes / 1e6:.1f} MB), plain "
-            f"{plain_ms:.4f} ms  [{card}]")
-    return records, {"total_s": total_s, "solve_s": solve_s,
-                     "mp_iter_per_s": rate, "setup_ms": setup_ms,
-                     "jpeg_read_s": read_s, "png_encode_s": png_s,
-                     "psnr_kernel_vs_plain": p_kp if math.isfinite(p_kp)
-                     else None}
+        ms = cuda_ms(lambda: fn(*a), reps)
+        fn.launches = saved_n         # timing launches are not path ones
+        timed[name] = (ms, cuda_ms(lambda: plain(*a), plain_reps))
+    records = [
+        _record("fused_grad", "jpeg2png_tpu_torch/csrc/grad_step.cu",
+                "jpeg2png_tpu/kernels/grad_step.py:388",
+                counts["two"]["fused_grad"], errs[0],
+                *timed["fused_grad"], b1, ops1),
+        _record("fused_project_multi",
+                "jpeg2png_tpu_torch/csrc/project_step.cu",
+                "jpeg2png_tpu/kernels/project_step.py:528",
+                counts["two"]["fused_project_multi"], errs[1], *timed["fused_project_multi"], b2, ops2),
+        _record("fused_solve", "jpeg2png_tpu_torch/csrc/iter_step.cu",
+                "jpeg2png_tpu/kernels/iter_step.py:602", None, errs[2],
+                *timed["fused_solve"], b3, ops3),
+    ]
+    for r in records:
+        log(f"  {r['name']}: {r['ms']:.4f} ms median (bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}), plain "
+            f"{r['plain_ms']:.4f} ms  [{card}]")
+    log(f"  fused_solve: {records[2]['ms'] / 50:.4f} ms per iteration "
+        f"(50 per launch at {H}x{W}); streaming the state through device "
+        f"memory each iteration would take "
+        f"{(32 * C * H * W + 14 * sum(H // sy * (W // sx) for sy, sx in prob.samps)) / PEAK_BYTES * 1e3:.4f} ms per iteration")
+    return records, {"tier": tier0, "launches": counts,
+                     "total_s": total_s,
+                     "solve_ms": solve_ms, "mp_iter_per_s": rate,
+                     "setup_ms": setup_ms, "jpeg_read_s": read_s,
+                     "png_encode_s": png_s,
+                     "psnr_mega_vs_two": p_tiers if math.isfinite(p_tiers)
+                     else None,
+                     "psnr_kernel_vs_plain": {
+                         t: p if math.isfinite(p) else None
+                         for t, p in p_plain.items()}}
+
+
+def phase_serving(card: str, files, images):
+    import numpy as np
+    import torch
+
+    from jpeg2png_tpu_torch import runner
+    from jpeg2png_tpu_torch.cli import main as cli_main
+    from jpeg2png_tpu_torch.models import solver
+    from jpeg2png_tpu_torch.pipeline import _pack
+
+    out_dir = OUT_DIR / "serving"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    outs = [out_dir / (pathlib.Path(f).stem + ".png") for f in files]
+    for o in outs:
+        o.unlink(missing_ok=True)
+    plan = runner.plan_buckets(images, [0.001] * 3)
+    predicted = sum(runner.bucket_dispatches(len(v), 50, False)
+                    for k, v in plan.items() if k[0] == "dyn")
+    argv = [str(f) for f in files] + [a for o in outs for a in ("-o", str(o))]
+    stats = {}
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = cli_main(argv + ["--tpu-batch", "-q", "--device", DEVICE],
+                  stats=stats)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    require(rc == 0, f"cli.main --tpu-batch returned {rc}")
+    require(all(o.exists() for o in outs), "missing serving PNGs")
+    log(f"  serving: {len(files)} files, rc {rc}, {wall_s:.3f} s wall; "
+        f"launches {launches}; predicted K3 dispatches {predicted}")
+    require(launches["fused_solve"] == predicted == stats["k3_dispatches"],
+            f"K3 launches {launches['fused_solve']}, plan {predicted}, "
+            f"stats {stats['k3_dispatches']}")
+
+    # every PNG against the same file decoded alone on the two-kernel tier
+    worst = math.inf
+    for img, o in zip(images, outs):
+        fd, _ = solver.solve_joint(*_args(img), 0.3, [0.001] * 3, 50,
+                                   device=DEVICE, tier="two")
+        p = psnr(read_own_png(o), _pack(list(fd), img, 8))
+        require(p > 45.0, f"serving {o.name}: PSNR {p:.2f} <= 45 dB")
+        worst = min(worst, p)
+    mp = sum(im.height * im.width for im in images) / 1e6
+    summary = {
+        "files": len(files), "wall_s": wall_s,
+        "files_per_s": len(files) / wall_s,
+        "mp_iter_per_s": mp * 50 / stats["solve_s"],
+        "true_mp": mp, "k3_launches": launches["fused_solve"],
+        "n_buckets": stats["n_buckets"],
+        "bucket_shapes": stats["bucket_shapes"],
+        "read_s": stats["read_s"], "solve_s": stats["solve_s"],
+        "png_thread_s": stats["on_pixels_s"],
+        "min_psnr_vs_two_tier": worst if math.isfinite(worst) else None}
+    log(f"  serving: {summary['files_per_s']:.2f} files/s, "
+        f"{summary['mp_iter_per_s']:.1f} MP*iter/s ({mp:.2f} true MP x 50 / "
+        f"solve {stats['solve_s']:.3f} s), read {stats['read_s']:.3f} s, PNG "
+        f"{stats['on_pixels_s']:.3f} thread-s, {stats['n_buckets']} buckets "
+        f"{stats['bucket_shapes']}; min PSNR vs two tier {worst:.2f} dB  "
+        f"[{card}]")
+    return launches["fused_solve"], summary
 
 
 def main() -> int:
@@ -492,18 +866,31 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from jpeg2png_tpu_torch.io import read_jpeg
+
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     # every phase raises on failure: the traceback ends the run, exit 1
     card = phase_device()
     log("phase 2: build")
     build_s = phase_build()
+    files = sorted(SERVING.glob("*.jpg"))
+    require(len(files) == N_SERVING, f"serving corpus: {len(files)} files")
+    t0 = time.perf_counter()
+    images = [read_jpeg(f) for f in files]
+    log(f"serving corpus read (one thread): {time.perf_counter() - t0:.3f} s")
     log("phase 3-4: kernels against their plain versions")
-    errs = phase_kernels()
-    log("phase 5: goldens")
+    errs = phase_kernels(images)
+    log("phase 5: goldens, both tiers")
     phase_goldens()
-    log("phase 6: main path, 3072x2048 4:2:0 default flags")
-    records, summary = phase_main_path(card, errs)
-    log(json.dumps({"card": card, "build_s": build_s, **summary}))
+    log("phase 6: single image, 3072x2048 4:2:0 default flags, both tiers")
+    records, single = phase_main_path(card, errs)
+    sweep = phase_tier_sweep(card)
+    log("phase 7: serving, cli --tpu-batch on the 48-file corpus")
+    k3_launches, serving = phase_serving(card, files, images)
+    records[2]["launches"] = k3_launches
+    require(k3_launches > 0, "K3 never launched on the serving path")
+    log(json.dumps({"card": card, "build_s": build_s, "single": single,
+                    "tier_sweep": sweep, "serving": serving}))
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

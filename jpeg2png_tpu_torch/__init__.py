@@ -7,8 +7,10 @@ same JPEG, by minimizing
 
 over the feasible set Q = { u : DCT(u) in [(k-0.5)q, (k+0.5)q] } with a
 FISTA-accelerated projected subgradient method (reference:
-compute.c:406-465, README.md:99-116).  The hot loop runs as two CUDA
-kernels per iteration written for Hopper (NVIDIA H100).
+compute.c:406-465, README.md:99-116).  The hot loop runs on CUDA
+kernels written for Hopper (NVIDIA H100): two per iteration for large
+canvases, or one launch for every iteration of a chunk for small ones
+and for batches of mixed-size images (runner.py).
 
 Layout (each module has its counterpart in the JAX package
 jpeg2png_tpu/, which stays the reference; this package imports none of
@@ -18,7 +20,8 @@ it):
                projection, prob term, color conversion (plain PyTorch)
     kernels/   the CUDA kernels' wrappers and plain versions; the sources
                are in csrc/ and build at first use (kernels/_build.py)
-    models/    the FISTA projected-subgradient solver
+    models/    the FISTA projected-subgradient solver (two tiers)
+    runner.py  bucketed batch serving (cli --tpu-batch)
     utils/     config, CSV convergence logger, progress reporting
 """
 

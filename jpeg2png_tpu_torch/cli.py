@@ -10,7 +10,10 @@ and output-naming behavior:
   -1/--16-bits-png, -c/--csv-log, -h/--help, -V/--version
 
 plus --device {cuda,cpu}: the solve runs on the CUDA card by default
-and fails without one; --device cpu runs the plain PyTorch path.
+and fails without one; --device cpu runs the plain PyTorch path; and
+--tpu-batch (the JAX package's name for the same mode): several inputs
+in joint mode are solved in mixed-size buckets through the whole-solve
+kernel (runner.py).
 
     python -m jpeg2png_tpu_torch.cli picture.jpg
 """
@@ -82,6 +85,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="display this help text and exit")
     p.add_argument("-V", "--version", action="version",
                    version=f"jpeg2png_tpu_torch version {__version__}")
+    p.add_argument("--tpu-batch", action="store_true",
+                   help="solve several inputs batched: mixed sizes share "
+                        "bucketed whole-solve launches (joint mode only)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the solve runs (default cuda; cpu runs "
                         "the plain PyTorch path)")
@@ -135,7 +141,41 @@ def derive_output_name(infile: str) -> str:
     return infile + ".png"
 
 
-def main(argv=None) -> int:
+def _run_batched(pairs, cfg, bits, logger, progress, threads, device,
+                 stats):
+    """--tpu-batch: one bucketed solve per bucket (runner.py); PNGs are
+    written from the runner's on_pixels as each image's pixels arrive.
+    Returns the error lines."""
+    import collections
+    import threading
+
+    from jpeg2png_tpu_torch.io import write_png
+    from jpeg2png_tpu_torch.runner import decode_files_batched
+
+    outmap = collections.defaultdict(list)
+    for infile, outfile in pairs:
+        outmap[infile].append(outfile)
+    errors = []
+    lock = threading.Lock()
+
+    def on_pixels(infile, pix):
+        for outfile in outmap[infile]:
+            try:
+                write_png(outfile, pix, bits)
+            except (ValueError, OSError) as e:
+                with lock:
+                    errors.append(f"{infile}: {e}")
+
+    decode_files_batched(list(outmap), cfg, bits, io_threads=threads or 8,
+                         logger=logger, errors=errors, progress=progress,
+                         on_pixels=on_pixels, stats=stats, device=device)
+    return errors
+
+
+def main(argv=None, stats=None) -> int:
+    """Run the CLI on `argv` (default sys.argv[1:]); returns the exit
+    code.  `stats`, a dict, receives the runner's stage breakdown of a
+    --tpu-batch run (runner.decode_files_batched)."""
     args = build_parser().parse_args(argv)
     if not args.inputs:
         build_parser().print_help()
@@ -170,7 +210,8 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)   # no card: RuntimeError, no fallback
     csv_f = open(args.csv_log, "w") if args.csv_log else None
-    logger = ConvergenceLogger(csv_f)
+    # without a CSV nothing listens to the metrics: solves run one-shot
+    logger = ConvergenceLogger(csv_f) if csv_f else None
     total = (nin * cfg.iterations[0] if not cfg.separate_components
              else nin * sum(cfg.iterations))
     progress = None if args.quiet else ProgressBar(total)
@@ -187,7 +228,11 @@ def main(argv=None) -> int:
     # per-image error isolation: one bad file doesn't kill the batch
     # (an improvement over the reference, where die() exits)
     pairs = list(zip(args.inputs, outfiles))
-    if args.threads and args.threads > 1 and nin > 1:
+    batched = args.tpu_batch and nin > 1 and not cfg.separate_components
+    if batched:
+        errors = _run_batched(pairs, cfg, bits, logger, progress,
+                              args.threads, device, stats)
+    elif args.threads and args.threads > 1 and nin > 1:
         with concurrent.futures.ThreadPoolExecutor(args.threads) as pool:
             errors = [e for e in pool.map(run_one, pairs) if e]
     else:

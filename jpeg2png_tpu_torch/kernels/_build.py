@@ -39,6 +39,8 @@ LIBRARIES = {
     # ulps and zero norms stay zero in both (the subgradient's 0/0 rule)
     "grad_step": ("grad_step.cu", ["-fmad=false"]),
     "project_step": ("project_step.cu", []),
+    # the whole solve (K3): its gradient tile is K1's, so the same rule
+    "iter_step": ("iter_step.cu", ["-fmad=false"]),
 }
 
 _lock = threading.Lock()

@@ -1,17 +1,21 @@
 """FISTA-accelerated projected subgradient solver.
 
-The iterate loop of the reference (compute.c:406-465) as a host loop of
-two fused kernels per iteration — the two-kernel body of the JAX
-package (jpeg2png_tpu/models/solver.py:365-468):
+The iterate loop of the reference (compute.c:406-465) in one of two
+tiers, the counterparts of the JAX package's (jpeg2png_tpu/models/
+solver.py:329-468):
 
-  K1 kernels/grad_step.py::fused_grad            FISTA extrapolation,
-     TV + TGV2 gather stencils, prob gradient, partial sums;
-  K2 kernels/project_step.py::fused_project_multi  normalized step, box
-     projection in the sampled DCT domain, next prob gradient, distance.
+  "two"  a host loop of two fused kernels per iteration:
+     K1 kernels/grad_step.py::fused_grad            FISTA extrapolation,
+        TV + TGV2 gather stencils, prob gradient, partial sums;
+     K2 kernels/project_step.py::fused_project_multi  normalized step, box
+        projection in the sampled DCT domain, next prob gradient, distance;
+  "mega" one launch of K3 kernels/iter_step.py::fused_solve per chunk of
+     iterations (the same arithmetic, with the prob term carried at
+     coefficient resolution as devq = (clamp - dq) / q^2).
 
-On CUDA every geometry takes this body; on the CPU the same body runs
-the kernels' plain PyTorch versions.  The canvas is exactly
-canvas_shape (no lane padding).  Channels whose region is smaller than
+active_tier picks one by geometry (the same on the CPU, where both run
+the kernels' plain PyTorch versions); `tier=` forces one.  The canvas is
+exactly canvas_shape (no lane padding).  Channels whose region is smaller than
 the canvas project on unconstrained boxes (lo = -2^39, hi = +2^39,
 dq = iq = 0) outside their region, so those pixels evolve freely like
 the reference's loop bounds (compute.c:349-403).
@@ -47,13 +51,15 @@ import numpy as np
 import torch
 
 from jpeg2png_tpu_torch import resolve_device
+from jpeg2png_tpu_torch.kernels import iter_step
 from jpeg2png_tpu_torch.kernels.grad_step import fused_grad, stack_channels
+from jpeg2png_tpu_torch.kernels.iter_step import fused_solve
 from jpeg2png_tpu_torch.kernels.project_step import (
-    GAP_BOX, fused_project_multi)
+    FREE_Q, GAP_BOX, fused_project_multi)
 from jpeg2png_tpu_torch.ops.blocks import deblockify
 from jpeg2png_tpu_torch.ops.dct_raster import idct_raster
-from jpeg2png_tpu_torch.ops.prob import prob_term_raster
-from jpeg2png_tpu_torch.ops.resample import upsample_nearest_clamped
+from jpeg2png_tpu_torch.ops.resample import (
+    upsample_nearest_clamped, upsample_replicate)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,17 +93,38 @@ class ChannelGeometry:
 
 def _fista_factors_np(nsteps: int, t: float = 1.0) -> Tuple[np.ndarray, float]:
     """Host-side FISTA factor sequence from t (compute.c:427-440)."""
-    out = np.empty((nsteps,), np.float32)
-    for i in range(nsteps):
-        tnext = (1.0 + math.sqrt(1.0 + 4.0 * t * t)) / 2.0
-        out[i] = (t - 1.0) / tnext
-        t = tnext
-    return out, t
+    return iter_step.fista_factors(t, nsteps)
 
 
 def canvas_shape(geoms: Sequence[ChannelGeometry]) -> Tuple[int, int]:
     """Full-res canvas = max over channels (compute.c:410-418)."""
     return (max(g.region_h for g in geoms), max(g.region_w for g in geoms))
+
+
+# Largest canvas (pixels) the mega tier takes.  Set from K3 against
+# K1 + K2 per iteration on an H100 (chip_smoke.py phase 6, PERF.md):
+# the mega tier was faster at 0.26 MP (0.14 vs 0.38 ms) and 1.23 MP (0.33
+# vs 0.31-0.53 ms, the two-kernel tier being host-bound there) and slower
+# at 3.15 MP (0.52 vs 0.38 ms) and 6.29 MP (0.94 vs 0.63 ms); the
+# threshold is the last measured size where it won, rounded to 1280x1024.
+MEGA_MAX_PIXELS = 1280 * 1024
+
+
+def active_tier(geoms: Sequence[ChannelGeometry],
+                pweights: Sequence[float] | None = None) -> str:
+    """The tier a solve of this geometry takes: "mega" (K3) when the
+    whole-solve kernel's gate holds and the canvas is at most
+    MEGA_MAX_PIXELS, else "two" (K1 + K2).  `pweights` gives the prob
+    channels (None: all on, the CLI default); the tier fixes the carry's
+    format."""
+    H, W = canvas_shape(geoms)
+    n_prob = (len(geoms) if pweights is None
+              else sum(1 for p in pweights if p != 0.0))
+    samps = [(g.h_samp, g.w_samp) for g in geoms]
+    if (H * W <= MEGA_MAX_PIXELS
+            and iter_step.supports(len(geoms), H, W, samps, n_prob)):
+        return "mega"
+    return "two"
 
 
 def objective_alphas(
@@ -168,6 +195,8 @@ class _Problem:
     his: list
     dqs_c: list    # dq / 1/q on the canvas grid, 0 in region gaps
     iqs_c: list
+    dats_c: list   # int16 coefficients / f32 quant on the canvas grid
+    qs_c: list     # (region gaps: data 0, quant FREE_Q) — K3's inputs
     f0: torch.Tensor
 
     @property
@@ -197,12 +226,13 @@ def _build_problem(datas, quants, samps, weight, pweights, iterations,
     radius = math.sqrt(float(H) * float(W)) / 2.0
     p_alphas, total_alpha = objective_alphas(weight, pweights, len(geoms))
     dqs, inv_qs, los, his, dqs_c, iqs_c, f0 = [], [], [], [], [], [], []
+    dats_c, qs_c = [], []
     for d, q, g in zip(datas, quants, geoms):
         # coefficient (u,v) of block (by,bx) lives at (8by+u, 8bx+v)
         q_r = torch.as_tensor(np.asarray(q, np.float32), device=device)
         q_r = q_r.tile(g.nby, g.nbx)
-        data_r = deblockify(torch.as_tensor(np.asarray(d), device=device)
-                            .to(torch.float32))
+        data_i16 = deblockify(torch.as_tensor(np.asarray(d), device=device))
+        data_r = data_i16.to(torch.float32)
         dq = data_r * q_r
         iq = 1.0 / q_r
         dqs.append(dq)
@@ -219,6 +249,10 @@ def _build_problem(datas, quants, samps, weight, pweights, iterations,
             hi = torch.nn.functional.pad(hi, pad, value=GAP_BOX)
             dq = torch.nn.functional.pad(dq, pad)
             iq = torch.nn.functional.pad(iq, pad)
+            data_i16 = torch.nn.functional.pad(data_i16, pad)
+            q_r = torch.nn.functional.pad(q_r, pad, value=FREE_Q)
+        dats_c.append(data_i16.contiguous())
+        qs_c.append(q_r.contiguous())
         los.append(lo)
         his.append(hi)
         dqs_c.append(dq)
@@ -229,20 +263,35 @@ def _build_problem(datas, quants, samps, weight, pweights, iterations,
         p_alphas=p_alphas, total_alpha=total_alpha,
         simd_compat_logging=bool(simd_compat_logging),
         dqs=dqs, inv_qs=inv_qs, los=los, his=his, dqs_c=dqs_c, iqs_c=iqs_c,
-        f0=torch.stack(f0))
+        dats_c=dats_c, qs_c=qs_c, f0=torch.stack(f0))
 
 
-def _initial_carry(prob: _Problem):
-    """(fdatas, fistas, pgrads [P, H, W], prob_dist, t) at iteration 0:
-    the prob gradient is zero because the saved coefficients start at
-    data*quant (compute.c:279-286)."""
+def _initial_carry(prob: _Problem, tier: str):
+    """The carry at iteration 0: the prob term is zero because the saved
+    coefficients start at data*quant (compute.c:279-286).
+
+    "two":  (fdatas, fistas, pgrads [P, H, W], prob_dist, t);
+    "mega": (fdatas, fistas, devqs tuple of [H/sy, W/sx] per prob
+            channel, prob_dist, t) — the JAX mega carry (solver.py:563-570).
+    """
+    if tier == "mega":
+        devqs = tuple(torch.zeros_like(q) for q, pa in
+                      zip(prob.qs_c, prob.p_alphas) if pa != 0.0)
+        return (prob.f0, prob.f0, devqs, 0.0, 1.0)
     n_prob = sum(1 for pa in prob.p_alphas if pa != 0.0)
     pg0 = torch.zeros((n_prob, prob.H, prob.W), device=prob.f0.device)
     return (prob.f0, prob.f0, pg0, 0.0, 1.0)
 
 
+def _carry_tier(carry) -> str:
+    return "mega" if isinstance(carry[2], tuple) else "two"
+
+
 def _run(prob: _Problem, carry, nsteps: int):
-    """nsteps iterations from `carry` -> (carry, metrics [nsteps, 4])."""
+    """nsteps iterations from `carry` (either tier's format) ->
+    (carry, metrics [nsteps, 4])."""
+    if _carry_tier(carry) == "mega":
+        return _run_mega(prob, carry, nsteps)
     fdatas, fistas, pgrads, prob_dist, t = carry
     factors, t_final = _fista_factors_np(nsteps, t)
     prob_mask = [pa != 0.0 for pa in prob.p_alphas]
@@ -277,59 +326,113 @@ def _run(prob: _Problem, carry, nsteps: int):
     return (fdatas, fistas, pgrads, float(dist_final), t_final), metrics
 
 
-def carry_from_numpy(carry, datas, quants, samps, weight, pweights,
-                     simd_compat_logging: bool = True, device="cuda"):
-    """The JAX package's XLA-tier carry -> this solver's carry.
+def _run_mega(prob: _Problem, carry, nsteps: int):
+    """The mega tier: all nsteps iterations in one K3 launch."""
+    fdatas, fistas, devqs, prob_dist, t = carry
+    if nsteps == 0:
+        return carry, np.zeros((0, 4), np.float32)
+    factors, t_final = _fista_factors_np(nsteps, t)
+    fdatas, fistas, devqs, partials = fused_solve(
+        fdatas, fistas, list(devqs), factors, prob.step_size, prob.dats_c,
+        prob.qs_c, prob.pa_sss, prob.samps, prob.weight)
+    # the chunk's one device -> host fetch
+    metrics, dist_final = mega_metrics(
+        partials.cpu().numpy(), prob_dist, prob.p_alphas, prob.total_alpha,
+        prob.simd_compat_logging)
+    return (fdatas, fistas, tuple(devqs), float(dist_final),
+            t_final), metrics
 
-    carry: (fdata [C,H,W], fista [C,H,W], cos tuple of per-channel
-    clamped coefficient rasters, t) as numpy arrays, from
-    jpeg2png_tpu.models.solver._build_solver_impl(..., use_pallas=False).
-    Returns (fdatas, fistas, pgrads [P, H, W], prob_dist, t): the prob
-    gradient and distance come from `cos` through this package's prob
-    term, which is what the JAX body computes at its next step
+
+def _resolve_tier(prob: _Problem, tier, pweights) -> str:
+    if tier is None:
+        return active_tier(prob.geoms, pweights)
+    if tier not in ("mega", "two"):
+        raise ValueError(f"unknown solver tier {tier!r}")
+    if tier == "mega" and not iter_step.supports(
+            len(prob.geoms), prob.H, prob.W, prob.samps,
+            sum(1 for p in pweights if p != 0.0)):
+        raise ValueError(f"the mega tier does not take geometry "
+                         f"{prob.H}x{prob.W} samps={prob.samps}")
+    return tier
+
+
+def carry_from_numpy(carry, datas, quants, samps, weight, pweights,
+                     simd_compat_logging: bool = True, device="cuda",
+                     tier=None):
+    """A JAX package carry -> this solver's carry for `tier` (default:
+    active_tier of the geometry).
+
+    carry, as numpy arrays, is either
+      * the XLA-tier carry (fdata [C,H,W], fista [C,H,W], cos tuple of
+        per-channel clamped coefficient rasters, t) from
+        jpeg2png_tpu.models.solver._build_solver_impl(..., use_pallas=
+        False), or
+      * the mega-tier carry (fdata tuple, fista tuple, devq tuple per
+        prob channel [H/sy, W/sx], prob_dist, t) from its fused solve.
+    The prob state becomes devq = (cos - dq) / q^2 on the canvas
+    coefficient grid (mega) or the pixel gradient p_alpha * up(idct(devq))
+    (two), with the distance the JAX body computes at its next step
     (jpeg2png_tpu/models/solver.py:263).  `weight` is accepted for
     signature parity; the carry does not depend on it.
     """
     del weight
     device = resolve_device(device)
-    fdata, fista, cos, t = carry
     prob = _build_problem(datas, quants, samps, 0.0, pweights, 0,
                           simd_compat_logging, device)
-    dist = torch.zeros((), device=device)
-    pgrads = []
-    for c, g in enumerate(prob.geoms):
-        pa = prob.p_alphas[c]
-        if pa == 0.0:
-            continue
-        d, region = prob_term_raster(
-            torch.as_tensor(np.array(cos[c], np.float32), device=device),
-            prob.dqs[c], prob.inv_qs[c], pa, g.h_samp, g.w_samp,
-            include_alpha_in_dist=not simd_compat_logging)
-        dist = dist + d
-        pgrads.append(torch.nn.functional.pad(
-            region, (0, prob.W - g.region_w, 0, prob.H - g.region_h)))
+    tier = _resolve_tier(prob, tier, pweights)
+
+    def tensor(x):
+        return torch.as_tensor(np.array(x, np.float32), device=device)
+
+    prob_cs = [c for c, pa in enumerate(prob.p_alphas) if pa != 0.0]
+    if len(carry) == 5:
+        fdata, fista, devqs_j, dist, t = carry
+        fdata = torch.stack([tensor(x) for x in fdata])
+        fista = torch.stack([tensor(x) for x in fista])
+        devqs = [tensor(d) for d in devqs_j]
+        dist = float(dist)
+    else:
+        fdata, fista, cos, t = carry
+        fdata, fista = tensor(fdata), tensor(fista)
+        devqs = []
+        dist = torch.zeros((), device=device)
+        for c in prob_cs:
+            g = prob.geoms[c]
+            scaled = (tensor(cos[c]) - prob.dqs[c]) * prob.inv_qs[c]
+            d = 0.5 * torch.sum(scaled * scaled)
+            dist = dist + (d if simd_compat_logging else prob.p_alphas[c] * d)
+            pad = (0, prob.W // g.w_samp - g.pw, 0, prob.H // g.h_samp - g.ph)
+            devqs.append(torch.nn.functional.pad(scaled * prob.inv_qs[c], pad))
+        dist = float(dist)
+    if tier == "mega":
+        return (fdata, fista, tuple(devqs), dist, float(t))
+    pgrads = [prob.p_alphas[c] * upsample_replicate(
+        idct_raster(d), *prob.samps[c]) for c, d in zip(prob_cs, devqs)]
     pg = (torch.stack(pgrads) if pgrads
           else torch.zeros((0, prob.H, prob.W), device=device))
-    return (torch.as_tensor(np.array(fdata, np.float32), device=device),
-            torch.as_tensor(np.array(fista, np.float32), device=device),
-            pg, float(dist), float(t))
+    return (fdata, fista, pg, dist, float(t))
 
 
 def solve_steps(datas, quants, samps, weight, pweights, iterations,
                 carry=None, nsteps=None, simd_compat_logging: bool = True,
-                device="cuda"):
+                device="cuda", tier=None):
     """The resumable primitive: `nsteps` (default `iterations`)
     iterations from `carry` (None: the plain decode).  `iterations` is
     the TOTAL planned count and fixes the step size
     radius/sqrt(1+iterations) (compute.c:443) however the run is split.
+    `tier` (default active_tier) must match the carry's format.
 
     Returns (fdata [C, H, W] tensor, metrics [nsteps, 4] numpy, carry).
     """
     device = resolve_device(device)
     prob = _build_problem(datas, quants, samps, weight, pweights,
                           iterations, simd_compat_logging, device)
+    tier = _resolve_tier(prob, tier, pweights)
     if carry is None:
-        carry = _initial_carry(prob)
+        carry = _initial_carry(prob, tier)
+    elif _carry_tier(carry) != tier:
+        raise ValueError(f"a {_carry_tier(carry)!r}-tier carry cannot "
+                         f"resume a {tier!r}-tier solve")
     carry, metrics = _run(prob, carry, iterations if nsteps is None
                           else nsteps)
     return carry[0], metrics, carry
@@ -344,6 +447,7 @@ def solve_joint(
     iterations: int,
     simd_compat_logging: bool = True,
     device="cuda",
+    tier=None,
 ):
     """Joint multi-channel solve (the default mode, jpeg2png.c:142-144).
 
@@ -353,6 +457,7 @@ def solve_joint(
         samps: per channel (h_samp, w_samp) replication factors.
         device: "cuda" (default; raises RuntimeError without a card) or
             "cpu" for the plain PyTorch versions of the kernels.
+        tier: None (active_tier), "mega" or "two".
     Returns:
         (fdata [C, H, W] tensor on `device`, metrics [iterations, 4]
         numpy) where metrics columns are (objective, prob_dist, tv, tv2)
@@ -360,14 +465,14 @@ def solve_joint(
     """
     fdata, metrics, _ = solve_steps(
         datas, quants, samps, weight, pweights, iterations,
-        simd_compat_logging=simd_compat_logging, device=device)
+        simd_compat_logging=simd_compat_logging, device=device, tier=tier)
     return fdata, metrics
 
 
 def solve_joint_chunked(
     datas, quants, samps, weight, pweights, iterations,
     on_chunk=None, chunk: int | None = None,
-    simd_compat_logging: bool = True, device="cuda",
+    simd_compat_logging: bool = True, device="cuda", tier=None,
 ):
     """solve_joint split into host-visible chunks.
 
@@ -383,7 +488,7 @@ def solve_joint_chunked(
         chunk = max(8, min(50, iterations // 20 or iterations))
     prob = _build_problem(datas, quants, samps, weight, pweights,
                           iterations, simd_compat_logging, device)
-    carry = _initial_carry(prob)
+    carry = _initial_carry(prob, _resolve_tier(prob, tier, pweights))
     all_metrics = []
     done = 0
     while done < iterations:
@@ -400,7 +505,7 @@ def solve_joint_chunked(
 
 def solve_separate(
     datas, quants, samps, weights, pweights, iterations_per_channel,
-    simd_compat_logging: bool = True, device="cuda",
+    simd_compat_logging: bool = True, device="cuda", tier=None,
 ):
     """Per-channel independent solves (-s mode, jpeg2png.c:146-153).
 
@@ -411,6 +516,6 @@ def solve_separate(
     return [
         solve_joint([datas[c]], [quants[c]], [samps[c]], weights[c],
                     [pweights[c]], iterations_per_channel[c],
-                    simd_compat_logging, device)
+                    simd_compat_logging, device, tier)
         for c in range(len(datas))
     ]

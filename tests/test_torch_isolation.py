@@ -40,7 +40,9 @@ def test_torch_port_import_loads_no_jax():
     code = (
         "import sys\n"
         "import chip_smoke, jpeg2png_tpu_torch.cli, jpeg2png_tpu_torch.pipeline\n"
-        "import jpeg2png_tpu_torch.models.solver\n"
+        "import jpeg2png_tpu_torch.models.solver, jpeg2png_tpu_torch.runner\n"
+        "import jpeg2png_tpu_torch.kernels.iter_step\n"
+        "import jpeg2png_tpu_torch.utils.corpus\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'jpeg2png_tpu'))\n"
         "print(','.join(bad))\n")
