@@ -91,11 +91,6 @@ class ChannelGeometry:
         return self.pw * self.w_samp
 
 
-def _fista_factors_np(nsteps: int, t: float = 1.0) -> Tuple[np.ndarray, float]:
-    """Host-side FISTA factor sequence from t (compute.c:427-440)."""
-    return iter_step.fista_factors(t, nsteps)
-
-
 def canvas_shape(geoms: Sequence[ChannelGeometry]) -> Tuple[int, int]:
     """Full-res canvas = max over channels (compute.c:410-418)."""
     return (max(g.region_h for g in geoms), max(g.region_w for g in geoms))
@@ -110,21 +105,26 @@ def canvas_shape(geoms: Sequence[ChannelGeometry]) -> Tuple[int, int]:
 MEGA_MAX_PIXELS = 1280 * 1024
 
 
+def mega_gate(nchannel: int, H: int, W: int, samps, n_prob: int) -> bool:
+    """Whether K3 takes an [H, W] canvas: the whole-solve kernel's gate
+    holds and the canvas is at most MEGA_MAX_PIXELS.  The one rule for
+    both the single-image tier (active_tier) and the serving runner's
+    buckets (runner.plan_buckets)."""
+    return (H * W <= MEGA_MAX_PIXELS
+            and iter_step.supports(nchannel, H, W, samps, n_prob))
+
+
 def active_tier(geoms: Sequence[ChannelGeometry],
                 pweights: Sequence[float] | None = None) -> str:
-    """The tier a solve of this geometry takes: "mega" (K3) when the
-    whole-solve kernel's gate holds and the canvas is at most
-    MEGA_MAX_PIXELS, else "two" (K1 + K2).  `pweights` gives the prob
-    channels (None: all on, the CLI default); the tier fixes the carry's
-    format."""
+    """The tier a solve of this geometry takes: "mega" (K3) where
+    mega_gate holds for its canvas, else "two" (K1 + K2).  `pweights`
+    gives the prob channels (None: all on, the CLI default); the tier
+    fixes the carry's format."""
     H, W = canvas_shape(geoms)
     n_prob = (len(geoms) if pweights is None
               else sum(1 for p in pweights if p != 0.0))
     samps = [(g.h_samp, g.w_samp) for g in geoms]
-    if (H * W <= MEGA_MAX_PIXELS
-            and iter_step.supports(len(geoms), H, W, samps, n_prob)):
-        return "mega"
-    return "two"
+    return "mega" if mega_gate(len(geoms), H, W, samps, n_prob) else "two"
 
 
 def objective_alphas(
@@ -293,7 +293,7 @@ def _run(prob: _Problem, carry, nsteps: int):
     if _carry_tier(carry) == "mega":
         return _run_mega(prob, carry, nsteps)
     fdatas, fistas, pgrads, prob_dist, t = carry
-    factors, t_final = _fista_factors_np(nsteps, t)
+    factors, t_final = iter_step.fista_factors(t, nsteps)
     prob_mask = [pa != 0.0 for pa in prob.p_alphas]
     samps, pa_sss = prob.samps, prob.pa_sss
     dqs = [d if m else None for d, m in zip(prob.dqs_c, prob_mask)]
@@ -331,7 +331,7 @@ def _run_mega(prob: _Problem, carry, nsteps: int):
     fdatas, fistas, devqs, prob_dist, t = carry
     if nsteps == 0:
         return carry, np.zeros((0, 4), np.float32)
-    factors, t_final = _fista_factors_np(nsteps, t)
+    factors, t_final = iter_step.fista_factors(t, nsteps)
     fdatas, fistas, devqs, partials = fused_solve(
         fdatas, fistas, list(devqs), factors, prob.step_size, prob.dats_c,
         prob.qs_c, prob.pa_sss, prob.samps, prob.weight)

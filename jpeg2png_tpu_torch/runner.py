@@ -15,9 +15,12 @@ runner (jpeg2png_tpu/runner.py:154-432, 947-1126):
     colour conversion run on the device; each image's pixels are fetched
     once.
 
-Geometries the kernel's gate refuses (the "exact" class) are solved one
-image at a time on the two-kernel tier.  There is one CUDA device per
-process in this slice (dp_degree counts them for later slices).
+Images whose bucket the mega tier's gate refuses (solver.mega_gate: the
+kernel's geometry gate, or a canvas above solver.MEGA_MAX_PIXELS, where
+the two-kernel tier was measured faster on the card) form the "exact"
+class and are solved one at a time on the two-kernel tier.  There is
+one CUDA device per process in this slice (dp_degree counts them for
+later slices).
 """
 
 from __future__ import annotations
@@ -38,8 +41,8 @@ from jpeg2png_tpu_torch.kernels import iter_step
 from jpeg2png_tpu_torch.kernels.iter_step import fused_solve
 from jpeg2png_tpu_torch.kernels.project_step import FREE_Q
 from jpeg2png_tpu_torch.models.solver import (
-    ChannelGeometry, canvas_shape, mega_metrics, objective_alphas,
-    solve_joint)
+    ChannelGeometry, canvas_shape, mega_gate, mega_metrics,
+    objective_alphas, solve_joint)
 from jpeg2png_tpu_torch.ops.color import gray_packed, ycbcr_to_rgb_packed
 from jpeg2png_tpu_torch.ops.dct_raster import idct_raster
 from jpeg2png_tpu_torch.utils.config import SolverConfig
@@ -330,7 +333,7 @@ def solve_batched(
     device="cuda",
 ) -> BatchResult:
     """The exact-geometry class: B images of one geometry, solved one at
-    a time on the two-kernel tier (what K3's gate refuses)."""
+    a time on the two-kernel tier (what the mega gate refuses)."""
     fds, ms = [], []
     for ds, qs in zip(datas, quants):
         fd, m = solve_joint(ds, qs, samps, weight, pweights, iterations,
@@ -352,8 +355,10 @@ def _pixels(fd: torch.Tensor, img: JpegImage, bits: int) -> np.ndarray:
 def plan_buckets(images: Sequence[Optional[JpegImage]],
                  pweights: Sequence[float]) -> Dict[Tuple, List[int]]:
     """Bucket keys -> member indices (None entries skipped).  A "dyn" key
-    ("dyn", HB, WB, samps) is a K3 bucket (quantized_bucket_for); an
-    "exact" key ("exact",) + geometry_key holds what K3's gate refuses."""
+    ("dyn", HB, WB, samps) is a K3 bucket (quantized_bucket_for) that
+    solver.mega_gate takes, the single-image tier's rule applied to the
+    canvas K3 would run; an "exact" key ("exact",) + geometry_key holds
+    the rest, for the two-kernel tier."""
     buckets: Dict[Tuple, List[int]] = defaultdict(list)
     for i, img in enumerate(images):
         if img is None:
@@ -361,8 +366,7 @@ def plan_buckets(images: Sequence[Optional[JpegImage]],
         samps = tuple(_samps(img))
         n_prob = sum(1 for p in pweights[:img.nchannel] if p != 0.0)
         bucket = quantized_bucket_for(img)
-        if iter_step.supports(img.nchannel, bucket[0], bucket[1], samps,
-                              n_prob):
+        if mega_gate(img.nchannel, bucket[0], bucket[1], samps, n_prob):
             buckets[("dyn",) + bucket + (samps,)].append(i)
         else:
             buckets[("exact",) + geometry_key(img)].append(i)

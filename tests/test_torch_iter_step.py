@@ -400,8 +400,9 @@ def test_torch_fused_solve_never_runs_plain_on_cuda_tensors(monkeypatch):
 def test_torch_cuda_fused_solve_matches_plain(cuda_device, B, samps, prob,
                                               weight, H, W, exts, nsteps):
     """K3 on the card against its plain version, per iteration run:
-    iterates within 1e-5 of their magnitude (the transforms sum in
-    another order), sumsq/tv/tv2 rtol 1e-5, distances rtol 1e-4, bucket
+    f and fista within 1e-5 of their magnitude (the transforms sum in
+    another order), devq within 2e-6 of the coefficients' magnitude,
+    every row's sumsq/tv/tv2 rtol 1e-5 and distances rtol 1e-4, bucket
     padding exactly 0."""
     rng = np.random.default_rng(10)
     probs = [_problem(rng, H, W, samps, prob, None if exts is None
@@ -425,6 +426,13 @@ def test_torch_cuda_fused_solve_matches_plain(cuda_device, B, samps, prob,
     assert iter_step.fused_solve.launches == before + 1
     tol = 1e-5 * nsteps * float(ref[0].abs().max())
     torch.testing.assert_close(got[0], ref[0], rtol=0, atol=tol)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=tol)
+    coef_mag = max(float(np.abs(p[3][c].astype(np.float32) * p[4][c]).max()
+                         + p[4][c].max()) for p in probs
+                   for c in range(len(samps)))
+    for a, b in zip(got[2], ref[2]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=2e-6 * nsteps * coef_mag)
     C = len(samps)
     torch.testing.assert_close(got[3][..., :C + 2], ref[3][..., :C + 2],
                                rtol=1e-5 * nsteps, atol=0)

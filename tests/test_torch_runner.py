@@ -112,6 +112,41 @@ def test_torch_corpus_buckets():
     assert len(keys) <= 16, sorted(keys)
 
 
+def test_torch_buckets_follow_the_mega_gate(fixtures_dir, monkeypatch):
+    """Serving sends a bucket to K3 by the single-image tier's rule
+    (solver.mega_gate on the bucket canvas): buckets above
+    MEGA_MAX_PIXELS go to the two-kernel (exact) class, and moving the
+    threshold moves them; the exact class decodes like the per-file
+    path and launches no K3."""
+    names = ["lineart64_q20_420", "photo80_q30_422", "odd100x52_q25_420"]
+    files = [str(fixtures_dir / f"{n}.jpg") for n in names]
+    imgs = [read_jpeg(f) for f in files]
+    areas = [int(np.prod(runner.quantized_bucket_for(im))) for im in imgs]
+    assert len(set(areas)) == 3, areas
+    for limit in (0, *sorted(areas), 1 << 40):
+        monkeypatch.setattr(solver, "MEGA_MAX_PIXELS", limit)
+        plan = runner.plan_buckets(imgs, [0.001] * 3)
+        dyn = sorted(i for k, v in plan.items() if k[0] == "dyn" for i in v)
+        assert dyn == [i for i, a in enumerate(areas) if a <= limit]
+        for i, img in enumerate(imgs):
+            # an image whose bucket is its own canvas takes the tier the
+            # single-image path gives it
+            if runner.quantized_bucket_for(img) == runner.bucket_shape_for(
+                    img):
+                geoms = solver._geometry(*_args(img)[::2])
+                assert (i in dyn) == (solver.active_tier(geoms) == "mega")
+
+    monkeypatch.setattr(solver, "MEGA_MAX_PIXELS", sorted(areas)[1])
+    cfg = SolverConfig(iterations=(2,) * 3)
+    stats = {}
+    out = runner.decode_files_batched(files, cfg, stats=stats, device="cpu")
+    assert stats["bucket_classes"] == {"dyn": 2, "exact": 1}
+    assert stats["k3_dispatches"] == 2
+    for f, img in zip(files, imgs):
+        ref = smooth_decode(img, cfg, device="cpu").pixels
+        assert np.abs(out[f].astype(int) - ref.astype(int)).max() <= 1
+
+
 def test_torch_batched_error_isolation(fixtures_dir, tmp_path):
     """A corrupt member drops out with an error; the rest still solve
     (as tests/test_runner.py:101-113)."""

@@ -11,6 +11,7 @@ import jax.numpy as jnp  # noqa: E402
 
 import oracle  # noqa: E402
 from jpeg2png_tpu.models import solver as jsolver  # noqa: E402
+from jpeg2png_tpu_torch.kernels import iter_step  # noqa: E402
 from jpeg2png_tpu_torch.models import solver  # noqa: E402
 
 torch.set_num_threads(2)
@@ -188,7 +189,7 @@ def test_torch_result_stays_feasible():
 
 
 def test_torch_fista_factors_and_alphas_match_jax():
-    f_t, t_t = solver._fista_factors_np(7)
+    f_t, t_t = iter_step.fista_factors(1.0, 7)
     f_j, t_j = jsolver._fista_factors_np(7)
     np.testing.assert_array_equal(f_t, f_j)
     assert t_t == t_j
