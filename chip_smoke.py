@@ -16,24 +16,31 @@ non-zero exit and no result line):
      the 3072x2048 canvas (static, 1 and 2 iterations) and on small odd
      geometries, each elementwise after one iteration, and on random data
      at the same shapes over 3 iterations, elementwise in every iteration
-     row, with the bucket padding held at exactly 0;
-  5. goldens: three fixtures through the port's cli.main at -i 50 must
+     row, with the bucket padding held at exactly 0; K4 and K5 on random
+     data (zero and nonzero halos, row0 > 0, static and dynamic extents,
+     prob on and off, 4:2:0 to 4:4:4 and C = 1, region gaps, frozen
+     padding, the 3072x2048 canvas), bf16 outputs within one bf16 step;
+     K3's lite mode on K3's random-data cases, every iteration of a
+     3-iteration launch against the plain version's step from the
+     kernel's own state;
+  5. goldens: three fixtures decoded at -i 50 through the pipeline must
      reach PSNR > 45 dB against the reference binary's PNGs, and the
      photo512 -i 5 CSV must agree with the reference on iterations 0-1,
-     each through both solver tiers (mega: K3; two: K1 + K2);
+     each through all four solver tiers (forced with tier=);
   6. the single-image path: the default-flag CLI decode of a 3072x2048
-     4:2:0 q30 JPEG (the tier active_tier picks) with the launch counters
-     read around it, the same solve forced through the other tier, both
-     timed with CUDA events, PSNR between the tiers and against the plain
-     path; the per-iteration cost of both tiers at photo512, ~1 MP, ~3 MP
-     and 3072x2048 (the numbers that set solver.MEGA_MAX_PIXELS); per-kernel
-     times beside their bounds and the plain versions' times;
+     4:2:0 q30 JPEG (the tier solver.tier_rule picks) with the launch
+     counters read around it, the same decode forced to two-lite (50
+     launches each of K4 and K5, nothing else), the solve forced through
+     every tier (launch counts, PSNR against the two tier and against the
+     plain path); per-kernel times beside their bounds and the plain
+     versions' times; the tier sweep: every tier at 0.26, 1.23, 3.15,
+     6.29 and 8.0 MP (the numbers that set the rule's gates);
   7. serving: cli.main --tpu-batch on the 48-file corpus
-     (tests/fixtures/torch_serving), 48 PNGs, the K3 and K1/K2 launch
-     counts against the runner's bucket plan (buckets above the tier
-     threshold go to the two-kernel tier), every PNG > 45 dB against
-     the same file decoded alone on the two-kernel tier, and the serving
-     numbers;
+     (tests/fixtures/torch_serving), with the committed gates and with
+     gates that give every class work: the launch count of each kernel
+     against the runner's bucket plan (dyn buckets on K3 or K3 lite, dyn2
+     images on K4 + K5, exact images on K1 + K2), every PNG > 45 dB
+     against the same file decoded alone on the two-kernel tier;
   8. a JSON line of end-to-end numbers, one JSON line of kernel records,
      then the device line last.
 
@@ -61,6 +68,8 @@ N_SERVING = 48
 # the ~1 MP and ~3 MP points of the tier sweep: 4:2:0 corpus images
 MID_JPEGS = (SERVING / "img016_1280x960_q20_s2.jpg",
              SERVING / "img021_2048x1536_q75_s2.jpg")
+# the 8.0 MP point of the tier sweep
+BIG_JPEG = SERVING / "img023_3264x2448_q90_s2.jpg"
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, f32 flop/s
 # outside the tensor cores
@@ -397,7 +406,17 @@ def _k3_compare(label, args, nsteps, extents=None, chaotic=False):
 
 def _k3_random_case(rng, label, B, H, W, samps, prob, weight, nsteps,
                     exts=None, gap_rows=0):
-    """K3 on random data (an exact case at every iteration count): f
+    """K3 on random data (_k3_random_args), an exact case at every
+    iteration count."""
+    args, ext, where = _k3_random_args(rng, B, H, W, samps, prob, weight,
+                                       nsteps, exts, gap_rows)
+    return _k3_compare(f"random {label} {where} n={nsteps}", args, nsteps,
+                       extents=ext)
+
+
+def _k3_random_args(rng, B, H, W, samps, prob, weight, nsteps, exts=None,
+                    gap_rows=0):
+    """K3's arguments on random data: f
     ~ N(0, 50) and fista within N(0, 2) of it, so no gradient is near 0;
     boxes centred on f's own coefficients with a +-2-step jitter, so
     some bind; a random devq carry and a prob weight (10 * sy * sx) that
@@ -462,8 +481,7 @@ def _k3_random_case(rng, label, B, H, W, samps, prob, weight, nsteps,
         ext = torch.tensor(ext_l, dtype=torch.int32, device=dev)
     where = (f"static {H}x{W}" if ext is None
              else f"bucket {H}x{W} extents {ext_l}")
-    return _k3_compare(f"random {label} {where} n={nsteps}", args, nsteps,
-                       extents=ext)
+    return args, ext, where
 
 
 def _k3_static_case(label, img, weight, pweights, nsteps):
@@ -566,9 +584,13 @@ def phase_kernels(corpus):
                                   weight, pweights, n)
             if n == 1:
                 k3.append(err)
-    k3 += k3_random_cases(rng, key[1:3],
-                          [runner.bucket_shape_for(im) for im in chunk])
-    return k1[0], k2[0], max(k3)
+    exts = [runner.bucket_shape_for(im) for im in chunk]
+    k3 += k3_random_cases(rng, key[1:3], exts)
+    k4, k5, k3_lite = lite_kernel_cases(rng, key[1:3], exts)
+    # max abs errors: K1 and K2 at 3072x2048, the others over their cases
+    return {"fused_grad": k1[0], "fused_project_multi": k2[0],
+            "fused_solve": max(k3), "fused_solve_lite": k3_lite,
+            "fused_grad_striped_lite": k4, "fused_project_multi_lite": k5}
 
 
 def k3_random_cases(rng, bucket, exts):
@@ -597,6 +619,388 @@ def k3_random_cases(rng, bucket, exts):
     ]
 
 
+# ------------------------------------------------ the lite family (K4, K5)
+
+S420 = [(1, 1), (2, 2), (2, 2)]
+LITE_GEOMETRIES = {          # name -> samps
+    "4:2:0": S420, "4:2:2": [(1, 1), (1, 2), (1, 2)],
+    "4:4:0": [(1, 1), (2, 1), (2, 1)], "4:1:1": [(1, 1), (1, 4), (1, 4)],
+    "4:4:4": [(1, 1)] * 3, "C=1": [(1, 1)]}
+
+
+def bf16_step(t):
+    """One bf16 step (unit in the last place) at the magnitude of each
+    element of t: 2^(floor(log2|t|) - 7), 0 where t is 0."""
+    import torch
+
+    t = t.to(torch.float32)
+    _, e = torch.frexp(t)
+    return torch.where(t == 0, 0.0, torch.ldexp(torch.ones_like(t), e - 8))
+
+
+def bf16_gate(label, what, got, ref, extra: float) -> float:
+    """|got - ref| <= one bf16 step of the reference element + `extra`
+    (the error the value carried before it was rounded to bf16).
+    Returns the max abs error."""
+    import torch
+
+    got = got.to(torch.float32)
+    ref = ref.to(torch.float32)
+    err = (got - ref).abs()
+    bad = err > bf16_step(ref) + extra
+    require(not bool(bad.any()),
+            f"{label} {what}: {int(bad.sum())} elements beyond one bf16 step "
+            f"+ {extra:.3g} (max err {float(err.max()):.3g})")
+    return float(err.max())
+
+
+def _rel_gate(label, what, got, ref, rtol):
+    import torch
+
+    got = torch.as_tensor(got, dtype=torch.float32).reshape(-1)
+    ref = torch.as_tensor(ref, dtype=torch.float32).reshape(-1).to(got.device)
+    rel = float(((got - ref).abs() / ref.abs().clamp_min(1e-30)).max())
+    require(rel <= rtol or float((got - ref).abs().max()) == 0.0,
+            f"{label} {what}: rel err {rel} > {rtol}")
+    return rel
+
+
+def _rand_state(rng, shape):
+    """f32 iterates ~ N(0, 50) and a bf16 FISTA difference ~ N(0, 2)."""
+    import numpy as np
+    import torch
+
+    f = torch.as_tensor(rng.normal(0, 50, shape).astype(np.float32),
+                        device=DEVICE)
+    d = torch.as_tensor(rng.normal(0, 2, shape).astype(np.float32),
+                        device=DEVICE).to(torch.bfloat16)
+    return f, d
+
+
+def _k4_case(rng, geom, prob, weight, L, W, row0=0, h_pad=None, ext=None,
+             halo=False, dynamic=False):
+    """K4 against its plain version: the bf16 gradient within one bf16
+    step of each element plus K1's f32 gate (1e-5 of the gradient's
+    magnitude, the rounding of the f32 value before it is stored: the
+    prob expansion sums in another order); sumsq, tv, tv2 rtol 1e-5
+    (summation order).  Without a prob term the f32 gradients round op
+    for op alike (-fmad=false), so the bf16 outputs are equal."""
+    import numpy as np
+    import torch
+
+    from jpeg2png_tpu_torch.kernels import stripe_grad
+
+    samps = LITE_GEOMETRIES[geom]
+    C = len(samps)
+    h_pad = L + row0 if h_pad is None else h_pad
+    h_true, w_true = ext or (h_pad, W)
+    f, d = _rand_state(rng, (C, L, W))
+    devqs = [torch.as_tensor(rng.normal(0, 0.1, (L // sy, W // sx)).astype(
+        np.float32), device=DEVICE).to(torch.bfloat16)
+        for (sy, sx), p in zip(samps, prob) if p]
+    halos = None
+    if halo:
+        (ft, dt), (fb, db) = (_rand_state(rng, (C, 2, W)) for _ in range(2))
+        halos = (ft, fb, dt, db)
+    pa_ss = [10.0 * sy * sx if p else 0.0 for (sy, sx), p in zip(samps, prob)]
+    extents = (torch.tensor([h_true, w_true], dtype=torch.int32,
+                            device=DEVICE) if dynamic else None)
+    args = (f, d, devqs, halos, 0.37, row0, weight, samps, pa_ss, h_pad,
+            h_true, w_true, extents)
+    got = stripe_grad.fused_grad_striped_lite(*args)
+    ref = stripe_grad.fused_grad_striped_lite_plain(*args)
+    torch.cuda.synchronize()
+    label = (f"K4 {geom} {L}x{W} row0={row0} of {h_pad} true {h_true}x"
+             f"{w_true} w={weight} prob={prob} halo={halo} dyn={dynamic}")
+    floor = 1e-5 * max(1.0, float(ref[0].float().abs().max()))
+    err = bf16_gate(label, "grad", got[0], ref[0], floor)
+    if not any(prob):
+        require(bool(torch.equal(got[0], ref[0])),
+                f"{label}: bf16 gradients differ without a prob term")
+    for name, a, b in (("sumsq", got[1], ref[1]), ("tv", got[2], ref[2]),
+                       ("tv2", got[3], ref[3])):
+        _rel_gate(label, name, a, b, 1e-5)
+    log(f"  {label}: grad err {err:.3g}, sums ok")
+    return err
+
+
+def _k5_problem(rng, H, W, samps, prob, gap_rows=0, pad=None):
+    """K5's inputs: f ~ N(0, 50), d ~ N(0, 2) and g ~ N(0, 1) (bf16),
+    small step scales, boxes centred on fmid's own coefficients with a
+    +-2-step jitter (some bind); `gap_rows` coefficient rows of channel 0
+    a region gap (FREE quant, data 0); `pad` = (h, w): the canvas beyond
+    it frozen padding (q == 0, data 0, a zero state)."""
+    import numpy as np
+    import torch
+
+    from jpeg2png_tpu_torch.kernels.project_step import FREE_Q
+    from jpeg2png_tpu_torch.ops.dct_raster import sampled_dct
+
+    C = len(samps)
+    f, d = _rand_state(rng, (C, H, W))
+    g = torch.as_tensor(rng.normal(0, 1, (C, H, W)).astype(np.float32),
+                        device=DEVICE).to(torch.bfloat16)
+    if pad is not None:
+        for t in (f, d, g):
+            t[:, pad[0]:] = 0
+            t[:, :, pad[1]:] = 0
+    scales = torch.as_tensor(rng.uniform(0.01, 0.05, C).astype(np.float32),
+                             device=DEVICE)
+    factor = 0.41
+    datas, qs = [], []
+    for c, (sy, sx) in enumerate(samps):
+        hc, wc = H // sy, W // sx
+        q = torch.as_tensor(np.tile(rng.integers(1, 60, (8, 8)).astype(
+            np.float32), (hc // 8, wc // 8)), device=DEVICE)
+        fmid = f[c] + factor * d[c].float() - scales[c] * g[c].float()
+        jitter = torch.as_tensor(rng.integers(-2, 3, (hc, wc)),
+                                 device=DEVICE, dtype=torch.float32)
+        data = torch.clamp(torch.round(sampled_dct(fmid, sy, sx) / q)
+                           + jitter, -2000, 2000)
+        if c == 0 and gap_rows:
+            q[-gap_rows:] = FREE_Q
+            data[-gap_rows:] = 0
+        if pad is not None:
+            q[pad[0] // sy:] = 0
+            q[:, pad[1] // sx:] = 0
+            data[pad[0] // sy:] = 0
+            data[:, pad[1] // sx:] = 0
+        datas.append(data.to(torch.int16))
+        qs.append(q)
+    pa_ss = [0.36 * sy * sx if p else 0.0 for (sy, sx), p in zip(samps, prob)]
+    return (f, d, g, factor, scales, datas, qs, pa_ss, samps)
+
+
+def _coef_mag(datas, qs) -> float:
+    """max |data * q| + max q over the constrained coefficients."""
+    import torch
+
+    return max(float((d.to(torch.float32) * torch.where(q < 2.0 ** 39, q, 0))
+                     .abs().max() + q[q < 2.0 ** 39].max())
+               for d, q in zip(datas, qs))
+
+
+def _k5_case(rng, geom, H, W, prob, gap_rows=0, pad=None):
+    """K5 against its plain version: fnew to K2's gate (1e-5 of its
+    magnitude: the transforms sum in another order, with fused
+    multiply-adds); dnew = bf16(fnew - f) within one bf16 step plus that
+    gate; devq within one bf16 step plus K3's coefficient gate (2e-6 of
+    the coefficients' magnitude, q >= 1); distances rtol 1e-5.  Frozen
+    padding must stay exactly 0 in fnew, dnew and devq."""
+    import torch
+
+    from jpeg2png_tpu_torch.kernels import project_step
+
+    samps = LITE_GEOMETRIES[geom]
+    args = _k5_problem(rng, H, W, samps, prob, gap_rows, pad)
+    got = project_step.fused_project_multi_lite(*args)
+    ref = project_step.fused_project_multi_lite_plain(*args)
+    torch.cuda.synchronize()
+    label = (f"K5 {geom} {H}x{W} prob={prob} gap_rows={gap_rows} "
+             f"pad={pad}")
+    f_err = max_err(got[0], ref[0])
+    f_tol = 1e-5 * float(ref[0].abs().max())
+    require(f_err <= f_tol, f"{label} fnew: {f_err} > {f_tol}")
+    d_err = bf16_gate(label, "dnew", got[1], ref[1], f_tol)
+    q_err = 0.0
+    d_tol = 2e-6 * _coef_mag(args[5], args[6])
+    for c, p in enumerate(prob):
+        if not p:
+            require(got[2][c] is None and float(got[3][c]) == 0.0,
+                    f"{label} channel {c}: prob off but devq/dist set")
+            continue
+        q_err = max(q_err, bf16_gate(label, f"devq c{c}", got[2][c],
+                                     ref[2][c], d_tol))
+        _rel_gate(label, f"dist c{c}", got[3][c], ref[3][c], 1e-5)
+    if pad is not None:
+        h, w = pad
+        for t in (got[0], got[1]):
+            require(not t[:, h:].any() and not t[:, :, w:].any(),
+                    f"{label}: padding is not 0")
+        for dq, (sy, sx) in zip(got[2], samps):
+            if dq is not None:
+                require(not dq[h // sy:].any() and not dq[:, w // sx:].any(),
+                        f"{label}: devq padding is not 0")
+    log(f"  {label}: fnew err {f_err:.3g} (tol {f_tol:.3g}), dnew err "
+        f"{d_err:.3g}, devq err {q_err:.3g}, dists ok")
+    return f_err
+
+
+def _k3_lite_compare(label, args, extents=None):
+    """K3's lite mode against its plain version, one iteration at a time
+    from the kernel's own state.  The kernel runs launches of 1..n
+    iterations from the same start (a launch of k iterations is the
+    first k of the n-iteration one: the state is all in device memory);
+    iteration k of the kernel is then held against the plain version's
+    single iteration from the kernel's state after k - 1, elementwise,
+    with its partials row.  So every iteration of a multi-iteration
+    launch is held to one iteration's tolerance, and bf16 rounding that
+    flips the other way on the two sides does not compound.
+
+    Tolerances of one iteration: the f32 part as K3's (f 1e-5 of its
+    magnitude, devq 2e-6 of the coefficients' magnitude, sums rtol 1e-5,
+    distances rtol 1e-4); a gradient element whose f32 values on the two
+    sides straddle a bf16 rounding boundary is stored one bf16 step
+    apart, which moves fmid, and so fnew, by at most scale_c * |g| * 2^-7
+    (the projection is non-expansive), the bound `flip` below; d and
+    devq are rounded from those values (one bf16 step plus the error
+    they carried).  The iterates must then move 100x the f tolerance
+    between iteration 1 and the last.  Bucket padding stays exactly 0."""
+    import torch
+
+    from jpeg2png_tpu_torch.kernels import iter_step, stripe_grad
+
+    f0, d0, dq0, factors = args[0], args[1], list(args[2]), args[3]
+    rest = args[4:]
+    step, samps, pa_ss, weight = args[4], args[8], args[7], args[9]
+    n = len(factors)
+    C = len(samps)
+    kw = {} if extents is None else {"extents": extents}
+    runs = [iter_step.fused_solve_lite(f0, d0, dq0, factors[:k], *rest, **kw)
+            for k in range(1, n + 1)]
+    torch.cuda.synchronize()
+    coef_mag = _coef_mag(args[5], args[6])
+    worst, state = 0.0, (f0, d0, dq0)
+    f_tol = 0.0
+    for k in range(n):
+        got = runs[k]
+        for t in (got[0], got[1], got[3], *got[2]):
+            require(bool(torch.isfinite(t.float()).all()),
+                    f"K3 lite {label}: non-finite")
+        ref = iter_step.fused_solve_lite_plain(
+            *state, factors[k:k + 1], *rest, **kw)
+        # the flip bound from this iteration's own gradient
+        fs, ds, dqs = state
+        flip = 0.0
+        steps = (torch.as_tensor(step).reshape(-1).tolist()
+                 if extents is not None else [float(step)])
+        for b in range(fs.shape[0] if extents is not None else 1):
+            sel = (lambda t: t[b]) if extents is not None else (lambda t: t)
+            h, w = ((int(extents[b, 0]), int(extents[b, 1]))
+                    if extents is not None else fs.shape[-2:])
+            g, sumsq, _, _ = stripe_grad.fused_grad_striped_lite_plain(
+                sel(fs), sel(ds), [sel(x) for x in dqs], None,
+                float(factors[k]), 0, weight, samps, pa_ss, fs.shape[-2], h,
+                w)
+            scale = torch.where(sumsq == 0, 0.0, steps[b] / torch.sqrt(sumsq))
+            flip = max(flip, float((scale[:, None, None] * g.float().abs())
+                                   .max()) * 2.0 ** -7)
+        f_tol = 1e-5 * float(ref[0].abs().max()) + flip
+        f_err = max_err(got[0], ref[0])
+        require(f_err <= f_tol, f"K3 lite {label} iteration {k + 1}: f err "
+                                f"{f_err} > {f_tol}")
+        bf16_gate(f"K3 lite {label} iteration {k + 1}", "d", got[1], ref[1],
+                  f_tol)
+        for x, y in zip(got[2], ref[2]):
+            bf16_gate(f"K3 lite {label} iteration {k + 1}", "devq", x, y,
+                      2e-6 * coef_mag + flip)
+        row_got = runs[-1][3][..., k, :]
+        row_ref = ref[3][..., 0, :]
+        zero = row_ref == 0
+        require(bool((row_got[zero] == 0).all()),
+                f"K3 lite {label}: zero columns")
+        rel = torch.where(zero, 0.0, (row_got - row_ref).abs()
+                          / row_ref.abs().clamp_min(1e-30))
+        require(float(rel[..., :C + 2].max()) <= 1e-5,
+                f"K3 lite {label} row {k}: sums rel "
+                f"{float(rel[..., :C + 2].max())}")
+        require(float(rel[..., C + 2:].max()) <= 1e-4,
+                f"K3 lite {label} row {k}: distances rel "
+                f"{float(rel[..., C + 2:].max())}")
+        worst = max(worst, f_err)
+        state = (got[0], got[1], list(got[2]))
+    if n > 1:
+        moved = max_err(runs[-1][0], runs[0][0])
+        require(moved > 100 * f_tol,
+                f"K3 lite {label}: iterations 2-{n} moved f {moved:.3g}, "
+                f"under 100x the tolerance {f_tol:.3g}")
+    if extents is not None:
+        prob_cs = [c for c, pa in enumerate(pa_ss) if pa != 0.0]
+        got = runs[-1]
+        for b, (h, w) in enumerate(extents.cpu().tolist()):
+            for t in (got[0][b], got[1][b]):
+                require(not t[:, h:].any() and not t[:, :, w:].any(),
+                        f"K3 lite {label}: image {b} padding is not 0")
+            for dq, c in zip(got[2], prob_cs):
+                sy, sx = samps[c]
+                require(not dq[b, h // sy:].any()
+                        and not dq[b, :, w // sx:].any(),
+                        f"K3 lite {label}: image {b} devq padding")
+    log(f"  K3 lite {label}: f err {worst:.3g} (last tol {f_tol:.3g})"
+        + (f", moved {moved:.3g} after iteration 1" if n > 1 else ""))
+    return worst
+
+
+def _k3_lite_random_case(rng, label, B, H, W, samps, prob, weight, nsteps,
+                         exts=None, gap_rows=0):
+    """_k3_random_case's data in the lite state (d = bf16(f - fista),
+    devq bf16), through K3's lite mode."""
+    import torch
+
+    a, ext, where = _k3_random_args(rng, B, H, W, samps, prob, weight,
+                                    nsteps, exts, gap_rows)
+    lite = (a[0], (a[0] - a[1]).to(torch.bfloat16),
+            [x.to(torch.bfloat16) for x in a[2]]) + tuple(a[3:])
+    return _k3_lite_compare(f"random {label} {where} n={nsteps}", lite,
+                            extents=ext)
+
+
+def lite_kernel_cases(rng, bucket, exts):
+    """K4, K5 and K3's lite mode against their plain versions: the
+    geometries of the two-lite tier and of serving, odd ones, and the
+    3072x2048 canvas.  Returns the max abs errors (K4 grad, K5 fnew, K3
+    lite f)."""
+    k4 = [
+        _k4_case(rng, "4:2:0", [True] * 3, 0.3, 2048, 3072),
+        _k4_case(rng, "4:2:0", [False] * 3, 0.0, 2048, 3072),
+        _k4_case(rng, "4:2:0", [True] * 3, 0.3, 128, 256, row0=64,
+                 h_pad=320, ext=(300, 250), halo=True),
+        _k4_case(rng, "4:2:0", [True, True, False], 0.3, 128, 256, row0=128,
+                 h_pad=256, ext=(200, 200), halo=True, dynamic=True),
+        _k4_case(rng, "4:2:2", [False] * 3, 0.5, 64, 192, row0=32,
+                 h_pad=128, halo=True),
+        _k4_case(rng, "4:4:0", [True, False, True], 0.3, 96, 120,
+                 ext=(90, 111)),
+        _k4_case(rng, "4:1:1", [True] * 3, 0.3, 48, 128, row0=16, h_pad=64,
+                 ext=(60, 128), halo=True, dynamic=True),
+        _k4_case(rng, "4:4:4", [True] * 3, 0.3, 40, 72),
+        _k4_case(rng, "C=1", [True], 0.0, 40, 56, row0=8, h_pad=64,
+                 ext=(57, 50), halo=True),
+    ]
+    k5 = [
+        _k5_case(rng, "4:2:0", 2048, 3072, [True] * 3),
+        _k5_case(rng, "4:2:0", 2048, 3072, [False] * 3),
+        _k5_case(rng, "4:2:0", 64, 112, [True, True, False], gap_rows=8),
+        _k5_case(rng, "4:2:0", 96, 128, [True] * 3, pad=(64, 80)),
+        _k5_case(rng, "4:2:2", 48, 96, [True] * 3, pad=(32, 64)),
+        _k5_case(rng, "4:4:0", 48, 80, [True, False, True]),
+        _k5_case(rng, "4:1:1", 40, 128, [True] * 3, gap_rows=16),
+        _k5_case(rng, "4:4:4", 40, 64, [True] * 3),
+        _k5_case(rng, "C=1", 40, 64, [True]),
+    ]
+    s420 = S420
+    k3 = [
+        _k3_lite_random_case(rng, "4:2:0", len(exts), *bucket, s420,
+                             [True] * 3, 0.3, 3, exts=exts),
+        _k3_lite_random_case(rng, "4:2:0", 1, 2048, 3072, s420, [True] * 3,
+                             0.3, 3),
+        _k3_lite_random_case(rng, "4:2:0 gap", 1, 64, 96, s420, [True] * 3,
+                             0.3, 3, gap_rows=16),
+        _k3_lite_random_case(rng, "4:1:1 prob off", 1, 48, 128,
+                             LITE_GEOMETRIES["4:1:1"], [True, False, True],
+                             0.5, 3),
+        _k3_lite_random_case(rng, "4:2:0", 2, 128, 128, s420, [True] * 3,
+                             0.3, 3, exts=[(96, 112), (128, 80)]),
+        _k3_lite_random_case(rng, "4:2:2", 1, 80, 96,
+                             LITE_GEOMETRIES["4:2:2"], [True] * 3, 0.3, 3),
+        _k3_lite_random_case(rng, "4:4:0", 1, 96, 120,
+                             LITE_GEOMETRIES["4:4:0"], [True] * 3, 0.3, 3),
+        _k3_lite_random_case(rng, "C=1 weight 0", 1, 40, 56, [(1, 1)],
+                             [True], 0.0, 3),
+    ]
+    return max(k4), max(k5), max(k3)
+
+
 def _csv_rows(path: pathlib.Path, channel: int = 3):
     import numpy as np
 
@@ -606,25 +1010,35 @@ def _csv_rows(path: pathlib.Path, channel: int = 3):
                       ("objective", "prob_dist", "tv", "tv2")] for r in rows])
 
 
+TIERS = ("mega", "mega-lite", "two-lite", "two")
+
+
 @contextlib.contextmanager
-def forced_tier(tier: str):
-    """Make active_tier pick `tier` for every geometry the tier takes
-    (the solver's size threshold; the CLI has no tier flag)."""
+def gates(mega: int, mega_lite: int, two_lite: int):
+    """Set solver.tier_rule's size gates for a serving run that sends
+    buckets to every class (the CLI has no tier flag; single-image runs
+    force a tier with tier= instead)."""
     from jpeg2png_tpu_torch.models import solver
 
-    saved = solver.MEGA_MAX_PIXELS
-    solver.MEGA_MAX_PIXELS = 1 << 62 if tier == "mega" else 0
+    names = ("MEGA_MAX_PIXELS", "MEGA_LITE_MAX_PIXELS", "TWO_LITE_MAX_PIXELS")
+    saved = [getattr(solver, n) for n in names]
+    for n, v in zip(names, (mega, mega_lite, two_lite)):
+        setattr(solver, n, v)
     try:
         yield
     finally:
-        solver.MEGA_MAX_PIXELS = saved
+        for n, v in zip(names, saved):
+            setattr(solver, n, v)
 
 
 def _counters():
-    from jpeg2png_tpu_torch.kernels import grad_step, iter_step, project_step
+    from jpeg2png_tpu_torch.kernels import (grad_step, iter_step,
+                                            project_step, stripe_grad)
 
     return (grad_step.fused_grad, project_step.fused_project_multi,
-            iter_step.fused_solve)
+            iter_step.fused_solve, iter_step.fused_solve_lite,
+            stripe_grad.fused_grad_striped_lite,
+            project_step.fused_project_multi_lite)
 
 
 def zero_counts() -> None:
@@ -636,43 +1050,54 @@ def read_counts() -> dict:
     return {fn.__name__: fn.launches for fn in _counters()}
 
 
-def _expect(counts: dict, tier: str, n_two: int, n_mega: int, what: str):
-    want = ({"fused_grad": n_two, "fused_project_multi": n_two,
-             "fused_solve": 0} if tier == "two" else
-            {"fused_grad": 0, "fused_project_multi": 0, "fused_solve": n_mega})
-    require(counts == want, f"{what} ({tier} tier): launches {counts}, "
-                            f"expected {want}")
+def tier_launches(tier: str, n: int) -> dict:
+    """The launch counts of `n` solver steps on `tier`: n iterations on
+    the two-kernel tiers (one launch of each kernel per iteration), n
+    launches of K3 on the mega tiers."""
+    kernels = {"two": ("fused_grad", "fused_project_multi"),
+               "mega": ("fused_solve",), "mega-lite": ("fused_solve_lite",),
+               "two-lite": ("fused_grad_striped_lite",
+                            "fused_project_multi_lite")}[tier]
+    return {fn.__name__: n if fn.__name__ in kernels else 0
+            for fn in _counters()}
+
+
+def _expect(counts: dict, want: dict, what: str):
+    require(counts == want, f"{what}: launches {counts}, expected {want}")
 
 
 def phase_goldens():
+    """Three goldens at -i 50 and the photo512 -i 5 CSV through every
+    tier, forced with the pipeline's tier= (what cli.main runs)."""
     import numpy as np
 
     sys.path.insert(0, str(ROOT / "tests"))
     from pngdec import decode_png
 
-    from jpeg2png_tpu_torch.cli import main as cli_main
+    from jpeg2png_tpu_torch.pipeline import decode_file
+    from jpeg2png_tpu_torch.utils.config import SolverConfig
+    from jpeg2png_tpu_torch.utils.logger import ConvergenceLogger
 
-    for tier in ("mega", "two"):
+    cfg = SolverConfig()
+    for tier in TIERS:
         zero_counts()
-        with forced_tier(tier):
-            for name in GOLDENS:
-                out = OUT_DIR / f"{name}_i50_{tier}.png"
-                rc = cli_main([str(FIXTURES / f"{name}.jpg"), "-o", str(out),
-                               "-f", "-q", "-i", "50", "--device", DEVICE])
-                require(rc == 0, f"cli.main on {name} returned {rc}")
-                gold = decode_png((FIXTURES / "golden" / f"{name}_i50.png")
-                                  .read_bytes())
-                p = psnr(read_own_png(out), gold)
-                log(f"  golden {name} i50 ({tier} tier): PSNR {p:.2f} dB")
-                require(p > 45.0, f"golden {name} ({tier}): PSNR {p:.2f} dB")
+        for name in GOLDENS:
+            out = OUT_DIR / f"{name}_i50_{tier}.png"
+            decode_file(str(FIXTURES / f"{name}.jpg"), str(out), cfg,
+                        device=DEVICE, tier=tier)
+            gold = decode_png((FIXTURES / "golden" / f"{name}_i50.png")
+                              .read_bytes())
+            p = psnr(read_own_png(out), gold)
+            log(f"  golden {name} i50 ({tier} tier): PSNR {p:.2f} dB")
+            require(p > 45.0, f"golden {name} ({tier}): PSNR {p:.2f} dB")
 
-            name = "photo512_q10_420"
-            log_path = OUT_DIR / f"{name}_i5_{tier}.csv"
-            rc = cli_main([str(FIXTURES / f"{name}.jpg"), "-o",
-                           str(OUT_DIR / f"{name}_i5_{tier}.png"), "-f", "-q",
-                           "-i", "5", "-c", str(log_path), "--device",
-                           DEVICE])
-            require(rc == 0, f"cli.main -i 5 on {name} returned {rc}")
+        name = "photo512_q10_420"
+        log_path = OUT_DIR / f"{name}_i5_{tier}.csv"
+        with open(log_path, "w") as f:
+            decode_file(str(FIXTURES / f"{name}.jpg"),
+                        str(OUT_DIR / f"{name}_i5_{tier}.png"),
+                        SolverConfig(iterations=(5,) * 3),
+                        logger=ConvergenceLogger(f), device=DEVICE, tier=tier)
         ours = _csv_rows(log_path)[:2]
         gold = _csv_rows(FIXTURES / "golden" / f"{name}_i5.csv")[:2]
         # the reference CSV gate of tests/test_e2e.py before the chaos point
@@ -683,7 +1108,10 @@ def phase_goldens():
                         f"vs {gold[:, col]}")
         log(f"  golden {name} i5 CSV rows 0-1 agree (rtol 6e-3, {tier} tier)")
         # 3 one-shot decodes, then -i 5 with a CSV: 5 one-iteration chunks
-        _expect(read_counts(), tier, 3 * 50 + 5, 3 + 5, "goldens")
+        mega = tier.startswith("mega")
+        _expect(read_counts(),
+                tier_launches(tier, 3 + 5 if mega else 3 * 50 + 5),
+                f"goldens ({tier} tier)")
 
 
 def _bytes_k1(C, P, H, W, nblocks):
@@ -696,18 +1124,50 @@ def _bytes_k2(C, P, H, W, samps, prob):
     return 4 * H * W * 2 * C + coef + 4 * H * W * (C + P)
 
 
-def _bound_k3(C, H, W, samps, prob, nsteps):
+def _bound_k3(C, H, W, samps, prob, nsteps, lite=False):
     """(bytes, operations) of one K3 launch: each input read once and
-    each output written once (f, fista in and out; int16 data and quant
-    rasters in; devq in and out per prob channel; factors; the partial
-    rows), and nsteps iterations of K1's and K2's operations."""
+    each output written once (f in and out; fista, or the lite mode's
+    bf16 d, in and out; int16 data and quant rasters in; devq in and out
+    per prob channel, f32 or bf16; factors; the partial rows), and
+    nsteps iterations of the two-kernel body's operations (K1 + K2, or
+    the lite mode's K4 + K5)."""
     coefs = [(H // sy) * (W // sx) for sy, sx in samps]
-    nbytes = (4 * 4 * C * H * W + sum(6 * n for n in coefs)
-              + sum(8 * n for n, p in zip(coefs, prob) if p)
+    side = 2 if lite else 4
+    nbytes = ((8 + 2 * side) * C * H * W + sum(6 * n for n in coefs)
+              + sum(2 * side * n for n, p in zip(coefs, prob) if p)
               + 4 * nsteps + 4 * 8 * nsteps)
-    ops = nsteps * (K1_OPS_PER_CHANNEL_PIXEL * C * H * W
+    if lite:
+        per_iter = (_bound_k4(C, H, W, samps, prob)[1]
+                    + _bound_k5(C, H, W, samps, prob)[1])
+    else:
+        per_iter = (K1_OPS_PER_CHANNEL_PIXEL * C * H * W
                     + K2_OPS_PER_COEF * sum(coefs))
+    return nbytes, nsteps * per_iter
+
+
+def _bound_k4(C, L, W, samps, prob):
+    """(bytes, operations) of one K4 launch: f (f32) and d (bf16) in, the
+    bf16 gradient out, per prob channel the bf16 devq in, the C + 2 sums
+    out; K1's stencil operations per pixel and channel plus two 8-term
+    transform passes (32 operations) per prob coefficient and the add."""
+    pc = sum((L // sy) * (W // sx) for (sy, sx), p in zip(samps, prob) if p)
+    nbytes = 8 * C * L * W + 2 * pc + 4 * (C + 2)
+    ops = (K1_OPS_PER_CHANNEL_PIXEL * C * L * W + 32 * pc
+           + 2 * L * W * sum(prob))
     return nbytes, ops
+
+
+def _bound_k5(C, H, W, samps, prob):
+    """(bytes, operations) of one K5 launch: f (f32), d and g (bf16) in,
+    fnew (f32) and dnew (bf16) out per pixel and channel; int16 data and
+    f32 quant in and, per prob channel, bf16 devq out per coefficient;
+    the C distances out.  Operations: two 8x8 transform pairs (64) and
+    the box, clamp and devq (8) per coefficient, 6 per pixel and
+    channel (e, fmid, the reconstruction, dnew)."""
+    coefs = [(H // sy) * (W // sx) for sy, sx in samps]
+    nbytes = (14 * C * H * W + 6 * sum(coefs)
+              + 2 * sum(n for n, p in zip(coefs, prob) if p) + 4 * C)
+    return nbytes, 72 * sum(coefs) + 6 * C * H * W
 
 
 def _record(name, src, replaces, launches, err, ms, plain_ms, nbytes, ops):
@@ -743,29 +1203,67 @@ def _solve_ms(img, tier) -> float:
 
 
 def phase_tier_sweep(card: str):
-    """Per-iteration cost of both tiers at photo512, ~1 MP, ~3 MP and 3072x2048
-    (50-iteration solves, warm; order two, mega, mega, two; the better of
-    each tier's two runs): the numbers behind solver.MEGA_MAX_PIXELS."""
+    """Per-iteration cost of every tier at 0.26, 1.23, 3.15, 6.29 and
+    8.0 MP (50-iteration solves, warm; the tiers in order, then
+    reversed; the better of each tier's two runs): the numbers behind
+    solver.tier_rule's gates."""
     from jpeg2png_tpu_torch.io import read_jpeg
+    from jpeg2png_tpu_torch.models import solver
 
     sweep = []
-    for path in (FIXTURES / "photo512_q10_420.jpg", *MID_JPEGS, SMOKE_JPEG):
+    for path in (FIXTURES / "photo512_q10_420.jpg", *MID_JPEGS, SMOKE_JPEG,
+                 BIG_JPEG):
         img = read_jpeg(path)
-        for tier in ("two", "mega"):
+        for tier in TIERS:
             _solve_ms(img, tier)                      # warm
-        runs = {"two": [], "mega": []}
-        for tier in ("two", "mega", "mega", "two"):
+        runs = {t: [] for t in TIERS}
+        for tier in TIERS + TIERS[::-1]:
             runs[tier].append(_solve_ms(img, tier))
         mp = img.height * img.width / 1e6
-        row = {"image": path.name, "mp": mp,
-               "two_ms_per_iter": min(runs["two"]) / 50,
-               "mega_ms_per_iter": min(runs["mega"]) / 50,
-               "runs_ms": runs}
+        row = {"image": path.name, "mp": mp, "runs_ms": runs}
+        row.update({f"{t}_ms_per_iter": min(v) / 50 for t, v in runs.items()})
+        # the gates' policy: the fastest f32 tier, unless a lite tier beats
+        # it by solver.LITE_MIN_GAIN; beside the tier the rule gives
+        per = {t: row[f"{t}_ms_per_iter"] for t in TIERS}
+        f32 = min(("mega", "two"), key=per.get)
+        lite = min(("mega-lite", "two-lite"), key=per.get)
+        row["policy_pick"] = (lite if per[lite] <= (1 - solver.LITE_MIN_GAIN)
+                              * per[f32] else f32)
+        geoms = solver._geometry(*_args(img)[::2])
+        row["rule_pick"] = solver.active_tier(geoms)
         sweep.append(row)
-        log(f"  tiers at {path.name} ({mp:.2f} MP): two "
-            f"{row['two_ms_per_iter']:.4f} ms/iter, mega "
-            f"{row['mega_ms_per_iter']:.4f} ms/iter  [{card}]")
+        log(f"  tiers at {path.name} ({mp:.2f} MP), ms per iteration: "
+            + ", ".join(f"{t} {per[t]:.4f}" for t in TIERS)
+            + f"; fastest by the gates' policy {row['policy_pick']}, the "
+            f"rule gives {row['rule_pick']}  [{card}]")
     return sweep
+
+
+def _patched_plain(solver):
+    """Point the solver's kernel names at the plain versions (and back)."""
+    from jpeg2png_tpu_torch.kernels import (grad_step, iter_step,
+                                            project_step, stripe_grad)
+
+    names = {"fused_grad": grad_step.fused_grad_plain,
+             "fused_project_multi": project_step.fused_project_multi_plain,
+             "fused_solve": iter_step.fused_solve_plain,
+             "fused_solve_lite": iter_step.fused_solve_lite_plain,
+             "fused_grad_striped_lite":
+                 stripe_grad.fused_grad_striped_lite_plain,
+             "fused_project_multi_lite":
+                 project_step.fused_project_multi_lite_plain}
+
+    @contextlib.contextmanager
+    def cm():
+        saved = {n: getattr(solver, n) for n in names}
+        for n, fn in names.items():
+            setattr(solver, n, fn)
+        try:
+            yield
+        finally:
+            for n, fn in saved.items():
+                setattr(solver, n, fn)
+    return cm()
 
 
 def phase_main_path(card: str, errs):
@@ -774,15 +1272,17 @@ def phase_main_path(card: str, errs):
 
     from jpeg2png_tpu_torch.cli import main as cli_main
     from jpeg2png_tpu_torch.io import encode_png, read_jpeg
-    from jpeg2png_tpu_torch.kernels import grad_step, iter_step, project_step
+    from jpeg2png_tpu_torch.kernels import (grad_step, iter_step,
+                                            project_step, stripe_grad)
     from jpeg2png_tpu_torch.models import solver
     from jpeg2png_tpu_torch.ops.color import ycbcr_to_rgb_packed
+    from jpeg2png_tpu_torch.pipeline import decode_file
+    from jpeg2png_tpu_torch.utils.config import SolverConfig
 
     img = read_jpeg(SMOKE_JPEG)
     datas, quants, samps = _args(img)
     geoms = solver._geometry(datas, samps)
     tier0 = solver.active_tier(geoms)
-    other = "two" if tier0 == "mega" else "mega"
     out = OUT_DIR / "torch_smoke_art3072x2048.png"
     zero_counts()
     t0 = time.perf_counter()
@@ -794,7 +1294,9 @@ def phase_main_path(card: str, errs):
     require(rc == 0, f"cli.main on the smoke JPEG returned {rc}")
     log(f"  single image: cli.main default flags ({tier0} tier), "
         f"{total_s:.3f} s total; launches {launches}")
-    _expect(launches, tier0, 50, 1, "3072x2048 CLI decode")
+    steps = {t: 1 if t.startswith("mega") else 50 for t in TIERS}
+    _expect(launches, tier_launches(tier0, steps[tier0]),
+            f"3072x2048 CLI decode ({tier0} tier)")
     t0 = time.perf_counter()
     read_jpeg(SMOKE_JPEG)
     read_s = time.perf_counter() - t0
@@ -806,55 +1308,51 @@ def phase_main_path(card: str, errs):
     png_s = time.perf_counter() - t0
     log(f"  host: JPEG read {read_s:.3f} s, PNG encode {png_s:.3f} s")
 
-    args = (datas, quants, samps, 0.3, [0.001] * 3, 50)
+    # the same decode through the pipeline, forced to the two-lite tier
+    out_lite = OUT_DIR / "torch_smoke_art3072x2048_two_lite.png"
     zero_counts()
-    fd_other, _ = solver.solve_joint(*args, device=DEVICE, tier=other)
+    t0 = time.perf_counter()
+    decode_file(str(SMOKE_JPEG), str(out_lite), SolverConfig(),
+                device=DEVICE, tier="two-lite")
     torch.cuda.synchronize()
-    counts = {tier0: launches, other: read_counts()}
-    _expect(counts[other], other, 50, 1, "3072x2048 forced solve")
-    log(f"  forced {other} tier: launches {counts[other]}")
+    lite_s = time.perf_counter() - t0
+    counts = {"two-lite decode": read_counts()}
+    _expect(counts["two-lite decode"], tier_launches("two-lite", 50),
+            "3072x2048 decode forced to two-lite")
+    log(f"  decode forced to two-lite: {lite_s:.3f} s; launches "
+        f"{counts['two-lite decode']}")
 
-    fdata = {other: fd_other}
-    solve_ms = {}
-    for tier in (tier0, other, other, tier0):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    # every tier, forced, on the same solve
+    args = (datas, quants, samps, 0.3, [0.001] * 3, 50)
+    fdata = {}
+    for tier in TIERS:
+        zero_counts()
         fd, metrics = solver.solve_joint(*args, device=DEVICE, tier=tier)
-        end.record()
         torch.cuda.synchronize()
-        solve_ms.setdefault(tier, []).append(start.elapsed_time(end))
-        fdata[tier] = fd
+        counts[tier] = read_counts()
+        _expect(counts[tier], tier_launches(tier, steps[tier]),
+                f"3072x2048 solve forced to {tier}")
         require(bool(torch.isfinite(fd).all()) and np.isfinite(metrics).all(),
                 f"non-finite solver output ({tier})")
-    H, W = fdata[tier0].shape[1:]
-    rate = {t: H * W / 1e6 * 50 / (min(v) / 1e3) for t, v in solve_ms.items()}
-    for t, v in solve_ms.items():
-        log(f"  solve ({t} tier, CUDA events): {v[0]:.3f}, {v[1]:.3f} ms, "
-            f"{rate[t]:.1f} MP*iter/s at {H}x{W}, 50 iterations  [{card}]")
+        fdata[tier] = fd
 
     def pack(f):
         h, w = img.height, img.width
         return ycbcr_to_rgb_packed(f[0][:h, :w] + 128.0, f[1][:h, :w],
                                    f[2][:h, :w])
-    p_tiers = psnr(pack(fdata["mega"]), pack(fdata["two"]))
-    log(f"  mega vs two tier (50 iterations): PSNR {p_tiers:.2f} dB")
-    require(p_tiers > 45.0, f"mega vs two tier PSNR {p_tiers:.2f} <= 45 dB")
+    two = pack(fdata["two"])
+    p_tiers = {t: psnr(pack(fdata[t]), two) for t in TIERS if t != "two"}
+    p_tiers["two-lite decode"] = psnr(read_own_png(out_lite), two)
+    for t, p in p_tiers.items():
+        log(f"  {t} vs two tier (50 iterations): PSNR {p:.2f} dB")
+        require(p > 45.0, f"{t} vs two tier PSNR {p:.2f} <= 45 dB")
 
     # kernel path vs plain path on the card, whole solve, each tier
     p_plain = {}
-    saved = (solver.fused_grad, solver.fused_project_multi,
-             solver.fused_solve)
-    solver.fused_grad = grad_step.fused_grad_plain
-    solver.fused_project_multi = project_step.fused_project_multi_plain
-    solver.fused_solve = iter_step.fused_solve_plain
-    try:
-        for tier in ("two", "mega"):
+    with _patched_plain(solver):
+        for tier in TIERS:
             fd_plain, _ = solver.solve_joint(*args, device=DEVICE, tier=tier)
             p_plain[tier] = psnr(pack(fdata[tier]), pack(fd_plain))
-    finally:
-        (solver.fused_grad, solver.fused_project_multi,
-         solver.fused_solve) = saved
     for tier, p in p_plain.items():
         log(f"  {tier} tier, kernel path vs plain path: PSNR {p:.2f} dB")
         require(p > 45.0, f"{tier} kernel vs plain path PSNR {p:.2f} <= 45")
@@ -872,6 +1370,7 @@ def phase_main_path(card: str, errs):
     torch.cuda.synchronize()
     setup_ms = start.elapsed_time(end)
     log(f"  solver set-up (upload, initial decode, boxes): {setup_ms:.3f} ms")
+    H, W = prob.H, prob.W
     k1_args = (fd, fi, list(pgrads), 0.5, 0.3, H, W)
     grads, extraps, sumsq, _, _ = grad_step.fused_grad(*k1_args)
     scale = torch.where(sumsq == 0, 0.0, prob.step_size / torch.sqrt(sumsq))
@@ -883,13 +1382,31 @@ def phase_main_path(card: str, errs):
     k3_args = (mcarry[0], mcarry[1], list(mcarry[2]), factors,
                prob.step_size, prob.dats_c, prob.qs_c, prob.pa_sss,
                prob.samps, 0.3)
-    C, P = 3, 3
+    _, _, lcarry = solver.solve_steps(*args, nsteps=3, device=DEVICE,
+                                      tier="two-lite")
+    k3l_args = (lcarry[0], lcarry[1], list(lcarry[2])) + k3_args[3:]
+    k4_args = (lcarry[0], lcarry[1], list(lcarry[2]), None, 0.5, 0, 0.3,
+               prob.samps, prob.pa_sss, H, H, W)
+    lgrads, lsumsq, _, _ = stripe_grad.fused_grad_striped_lite(*k4_args)
+    lscale = torch.where(lsumsq == 0, 0.0,
+                         prob.step_size / torch.sqrt(lsumsq))
+    k5_args = (lcarry[0], lcarry[1], lgrads, 0.5, lscale, prob.dats_c,
+               prob.qs_c, prob.pa_sss, prob.samps)
+    C, P, prob_on = 3, 3, [True] * 3
     nblocks = -(-H // grad_step.TILE_H) * -(-W // grad_step.TILE_W)
-    b1 = _bytes_k1(C, P, H, W, nblocks)
-    b2 = _bytes_k2(C, P, H, W, prob.samps, [True] * 3)
-    b3, ops3 = _bound_k3(C, H, W, prob.samps, [True] * 3, 50)
-    ops1 = K1_OPS_PER_CHANNEL_PIXEL * C * H * W
-    ops2 = K2_OPS_PER_COEF * sum(H // sy * (W // sx) for sy, sx in prob.samps)
+    bounds = {
+        "fused_grad": (_bytes_k1(C, P, H, W, nblocks),
+                       K1_OPS_PER_CHANNEL_PIXEL * C * H * W),
+        "fused_project_multi": (
+            _bytes_k2(C, P, H, W, prob.samps, prob_on),
+            K2_OPS_PER_COEF * sum(H // sy * (W // sx)
+                                  for sy, sx in prob.samps)),
+        "fused_solve": _bound_k3(C, H, W, prob.samps, prob_on, 50),
+        "fused_solve_lite": _bound_k3(C, H, W, prob.samps, prob_on, 50,
+                                      lite=True),
+        "fused_grad_striped_lite": _bound_k4(C, H, W, prob.samps, prob_on),
+        "fused_project_multi_lite": _bound_k5(C, H, W, prob.samps, prob_on),
+    }
     timed = {}
     for name, fn, plain, a, reps, plain_reps in (
             ("fused_grad", grad_step.fused_grad, grad_step.fused_grad_plain,
@@ -897,66 +1414,92 @@ def phase_main_path(card: str, errs):
             ("fused_project_multi", project_step.fused_project_multi,
              project_step.fused_project_multi_plain, k2_args, 20, 5),
             ("fused_solve", iter_step.fused_solve,
-             iter_step.fused_solve_plain, k3_args, 5, 1)):
+             iter_step.fused_solve_plain, k3_args, 5, 1),
+            ("fused_solve_lite", iter_step.fused_solve_lite,
+             iter_step.fused_solve_lite_plain, k3l_args, 5, 1),
+            ("fused_grad_striped_lite", stripe_grad.fused_grad_striped_lite,
+             stripe_grad.fused_grad_striped_lite_plain, k4_args, 20, 5),
+            ("fused_project_multi_lite",
+             project_step.fused_project_multi_lite,
+             project_step.fused_project_multi_lite_plain, k5_args, 20, 5)):
         saved_n = fn.launches
         ms = cuda_ms(lambda: fn(*a), reps)
         fn.launches = saved_n         # timing launches are not path ones
         timed[name] = (ms, cuda_ms(lambda: plain(*a), plain_reps))
+    sources = {
+        "fused_grad": ("grad_step.cu", "grad_step.py:388"),
+        "fused_project_multi": ("project_step.cu", "project_step.py:528"),
+        "fused_solve": ("iter_step.cu", "iter_step.py:602"),
+        # the lite mode of the same kernel (lite=True, :664-670, :758-761)
+        "fused_solve_lite": ("iter_step.cu", "iter_step.py:602"),
+        "fused_grad_striped_lite": ("stripe_grad.cu", "stripe_grad.py:672"),
+        "fused_project_multi_lite": ("project_lite.cu",
+                                     "project_step.py:883"),
+    }
+    path_launches = {
+        "fused_grad": counts["two"]["fused_grad"],
+        "fused_project_multi": counts["two"]["fused_project_multi"],
+        "fused_solve": None, "fused_solve_lite": None,     # from serving
+        "fused_grad_striped_lite":
+            counts["two-lite decode"]["fused_grad_striped_lite"],
+        "fused_project_multi_lite":
+            counts["two-lite decode"]["fused_project_multi_lite"],
+    }
     records = [
-        _record("fused_grad", "jpeg2png_tpu_torch/csrc/grad_step.cu",
-                "jpeg2png_tpu/kernels/grad_step.py:388",
-                counts["two"]["fused_grad"], errs[0],
-                *timed["fused_grad"], b1, ops1),
-        _record("fused_project_multi",
-                "jpeg2png_tpu_torch/csrc/project_step.cu",
-                "jpeg2png_tpu/kernels/project_step.py:528",
-                counts["two"]["fused_project_multi"], errs[1],
-                *timed["fused_project_multi"], b2, ops2),
-        _record("fused_solve", "jpeg2png_tpu_torch/csrc/iter_step.cu",
-                "jpeg2png_tpu/kernels/iter_step.py:602", None, errs[2],
-                *timed["fused_solve"], b3, ops3),
-    ]
+        _record(name, f"jpeg2png_tpu_torch/csrc/{src}",
+                f"jpeg2png_tpu/kernels/{rep}", path_launches[name],
+                errs[name], *timed[name], *bounds[name])
+        for name, (src, rep) in sources.items()]
     for r in records:
         log(f"  {r['name']}: {r['ms']:.4f} ms median (bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']}), plain "
             f"{r['plain_ms']:.4f} ms  [{card}]")
-    stream_bytes = 32 * C * H * W + 14 * sum(H // sy * (W // sx)
-                                             for sy, sx in prob.samps)
-    log(f"  fused_solve: {records[2]['ms'] / 50:.4f} ms per iteration "
-        f"(50 per launch at {H}x{W}); streaming the state through device "
-        f"memory each iteration would take "
-        f"{stream_bytes / PEAK_BYTES * 1e3:.4f} ms per iteration")
+    coefs = sum(H // sy * (W // sx) for sy, sx in prob.samps)
+    for name, per_px in (("fused_solve", 32), ("fused_solve_lite", 22)):
+        ms = timed[name][0]
+        stream = (per_px * C * H * W + (14 if per_px == 32 else 10) * coefs)
+        log(f"  {name}: {ms / 50:.4f} ms per iteration (50 per launch at "
+            f"{H}x{W}); streaming the state through device memory each "
+            f"iteration would take {stream / PEAK_BYTES * 1e3:.4f} ms")
     return records, {"tier": tier0, "launches": counts,
-                     "total_s": total_s,
-                     "solve_ms": solve_ms, "mp_iter_per_s": rate,
+                     "total_s": total_s, "two_lite_decode_s": lite_s,
                      "setup_ms": setup_ms, "jpeg_read_s": read_s,
                      "png_encode_s": png_s,
-                     "psnr_mega_vs_two": p_tiers if math.isfinite(p_tiers)
-                     else None,
+                     "psnr_vs_two": {t: p if math.isfinite(p) else None
+                                     for t, p in p_tiers.items()},
                      "psnr_kernel_vs_plain": {
                          t: p if math.isfinite(p) else None
                          for t, p in p_plain.items()}}
 
 
-def phase_serving(card: str, files, images):
+def _serve(label, card, files, images, refs):
+    """One cli.main --tpu-batch run on the corpus: the launch counts of
+    each kernel against the runner's plan (dyn buckets: K3 per image
+    chunk, f32 or lite by their tier; dyn2 images: 50 K4 + K5; exact
+    images: 50 K1 + K2), every PNG > 45 dB against the file's two-tier
+    decode."""
     import numpy as np
     import torch
 
     from jpeg2png_tpu_torch import runner
     from jpeg2png_tpu_torch.cli import main as cli_main
-    from jpeg2png_tpu_torch.models import solver
-    from jpeg2png_tpu_torch.pipeline import _pack
 
-    out_dir = OUT_DIR / "serving"
+    out_dir = OUT_DIR / f"serving_{label}"
     out_dir.mkdir(parents=True, exist_ok=True)
     outs = [out_dir / (pathlib.Path(f).stem + ".png") for f in files]
     for o in outs:
         o.unlink(missing_ok=True)
-    plan = runner.plan_buckets(images, [0.001] * 3)
-    predicted = sum(runner.bucket_dispatches(len(v), 50, False)
-                    for k, v in plan.items() if k[0] == "dyn")
-    # the exact class (buckets the mega gate refuses): 50 K1 + K2 each
-    n_two = sum(len(v) for k, v in plan.items() if k[0] == "exact")
+    pweights = [0.001] * 3
+    plan = runner.plan_buckets(images, pweights)
+    want = {k: 0 for k in read_counts()}
+    images_by_tier = {t: 0 for t in TIERS}
+    for key, members in plan.items():
+        tier = runner.bucket_tier(key, pweights)
+        images_by_tier[tier] += len(members)
+        n = (runner.bucket_dispatches(len(members), 50, False)
+             if tier.startswith("mega") else 50 * len(members))
+        for k, v in tier_launches(tier, n).items():
+            want[k] += v
     argv = [str(f) for f in files] + [a for o in outs for a in ("-o", str(o))]
     stats = {}
     zero_counts()
@@ -968,43 +1511,63 @@ def phase_serving(card: str, files, images):
     launches = read_counts()
     require(rc == 0, f"cli.main --tpu-batch returned {rc}")
     require(all(o.exists() for o in outs), "missing serving PNGs")
-    log(f"  serving: {len(files)} files, rc {rc}, {wall_s:.3f} s wall; "
-        f"launches {launches}; predicted K3 dispatches {predicted}, "
-        f"{n_two} images on the two-kernel tier")
-    require(launches["fused_solve"] == predicted == stats["k3_dispatches"],
-            f"K3 launches {launches['fused_solve']}, plan {predicted}, "
-            f"stats {stats['k3_dispatches']}")
-    require(launches["fused_grad"] == launches["fused_project_multi"]
-            == 50 * n_two, f"K1/K2 launches {launches}, expected "
-                           f"{50 * n_two} each")
-
-    # every PNG against the same file decoded alone on the two-kernel tier
+    log(f"  serving ({label}): {len(files)} files, {wall_s:.3f} s wall; "
+        f"images per tier {images_by_tier}; launches {launches}")
+    _expect(launches, want, f"serving ({label})")
+    require(stats["k3_dispatches"] == want["fused_solve"]
+            and stats["k3_lite_dispatches"] == want["fused_solve_lite"]
+            and stats["bucket_tiers"] == images_by_tier,
+            f"serving ({label}) stats {stats} disagree with the plan")
     worst = math.inf
-    for img, o in zip(images, outs):
-        fd, _ = solver.solve_joint(*_args(img), 0.3, [0.001] * 3, 50,
-                                   device=DEVICE, tier="two")
-        p = psnr(read_own_png(o), _pack(list(fd), img, 8))
-        require(p > 45.0, f"serving {o.name}: PSNR {p:.2f} <= 45 dB")
+    for ref, o in zip(refs, outs):
+        p = psnr(read_own_png(o), ref)
+        require(p > 45.0, f"serving ({label}) {o.name}: PSNR {p:.2f} <= 45")
         worst = min(worst, p)
     mp = sum(im.height * im.width for im in images) / 1e6
     summary = {
         "files": len(files), "wall_s": wall_s,
         "files_per_s": len(files) / wall_s,
         "mp_iter_per_s": mp * 50 / stats["solve_s"],
-        "true_mp": mp, "k3_launches": launches["fused_solve"],
-        "two_tier_images": n_two, "n_buckets": stats["n_buckets"],
+        "true_mp": mp, "launches": launches,
+        "images_per_tier": images_by_tier, "n_buckets": stats["n_buckets"],
         "bucket_classes": stats["bucket_classes"],
         "bucket_shapes": stats["bucket_shapes"],
         "read_s": stats["read_s"], "solve_s": stats["solve_s"],
         "png_thread_s": stats["on_pixels_s"],
         "min_psnr_vs_two_tier": worst if math.isfinite(worst) else None}
-    log(f"  serving: {summary['files_per_s']:.2f} files/s, "
+    log(f"  serving ({label}): {summary['files_per_s']:.2f} files/s, "
         f"{summary['mp_iter_per_s']:.1f} MP*iter/s ({mp:.2f} true MP x 50 / "
         f"solve {stats['solve_s']:.3f} s), read {stats['read_s']:.3f} s, PNG "
         f"{stats['on_pixels_s']:.3f} thread-s, {stats['n_buckets']} buckets "
-        f"{stats['bucket_shapes']}; min PSNR vs two tier {worst:.2f} dB  "
-        f"[{card}]")
-    return launches["fused_solve"], summary
+        f"{stats['bucket_classes']} {stats['bucket_shapes']}; min PSNR vs "
+        f"two tier {worst:.2f} dB  [{card}]")
+    return launches, summary
+
+
+def phase_serving(card, files, images):
+    """cli.main --tpu-batch on the corpus twice: with the tier gates
+    the sweep set (solver.tier_rule as committed), and with gates that
+    send each class work (mega up to 1280x1024 buckets, mega-lite up to
+    1536x2048, two-lite above: K3, K3 lite, K4 + K5)."""
+    from jpeg2png_tpu_torch.models import solver
+    from jpeg2png_tpu_torch.pipeline import _pack
+
+    refs = []
+    for img in images:
+        fd, _ = solver.solve_joint(*_args(img), 0.3, [0.001] * 3, 50,
+                                   device=DEVICE, tier="two")
+        refs.append(_pack(list(fd), img, 8))
+    runs = {"default": _serve("default", card, files, images, refs)}
+    with gates(1280 * 1024, 1536 * 2048, 1 << 62):
+        runs["every class"] = _serve("every-class", card, files, images,
+                                     refs)
+    for label, (launches, _) in runs.items():
+        require(launches["fused_solve"] + launches["fused_solve_lite"] > 0,
+                f"serving ({label}): K3 never launched")
+    every = runs["every class"][0]
+    for name in ("fused_solve", "fused_solve_lite", "fused_grad_striped_lite"):
+        require(every[name] > 0, f"serving (every class): {name} never ran")
+    return runs
 
 
 def main() -> int:
@@ -1017,6 +1580,7 @@ def main() -> int:
     from jpeg2png_tpu_torch.io import read_jpeg
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
+    t_start = time.perf_counter()
     # every phase raises on failure: the traceback ends the run, exit 1
     card = phase_device()
     log("phase 2: build")
@@ -1028,17 +1592,23 @@ def main() -> int:
     log(f"serving corpus read (one thread): {time.perf_counter() - t0:.3f} s")
     log("phase 3-4: kernels against their plain versions")
     errs = phase_kernels(images)
-    log("phase 5: goldens, both tiers")
+    log("phase 5: goldens, every tier")
     phase_goldens()
-    log("phase 6: single image, 3072x2048 4:2:0 default flags, both tiers")
+    log("phase 6: single image, 3072x2048 4:2:0 default flags, every tier")
     records, single = phase_main_path(card, errs)
     sweep = phase_tier_sweep(card)
     log("phase 7: serving, cli --tpu-batch on the 48-file corpus")
-    k3_launches, serving = phase_serving(card, files, images)
-    records[2]["launches"] = k3_launches
-    require(k3_launches > 0, "K3 never launched on the serving path")
+    serving = phase_serving(card, files, images)
+    by_name = {r["name"]: r for r in records}
+    by_name["fused_solve"]["launches"] = serving["default"][0]["fused_solve"]
+    by_name["fused_solve_lite"]["launches"] = (
+        serving["every class"][0]["fused_solve_lite"])
+    single["solve_ms_per_iter"] = {
+        t: sweep[3][f"{t}_ms_per_iter"] for t in TIERS}
     log(json.dumps({"card": card, "build_s": build_s, "single": single,
-                    "tier_sweep": sweep, "serving": serving}))
+                    "tier_sweep": sweep,
+                    "serving": {k: v[1] for k, v in serving.items()},
+                    "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

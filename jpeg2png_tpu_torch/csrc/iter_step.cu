@@ -45,8 +45,19 @@
 // PyTorch version.  Removing the per-iteration launches and host work is
 // what this kernel buys; keeping a bucket's state resident in L2 or
 // shared memory is later work.
+//
+// Lite mode (LITE = true; the TPU kernel's lite=True, iter_step.py:664-670,
+// 696-704, 758-761): the side buffers hold bf16 in place of f32 — the FISTA
+// shadow becomes the difference d = f - fista (e = f + factor * d), the
+// gradient and devq are rounded to bf16 where they are stored (sumsq from
+// the f32 gradient), and the swap writes d = bf16(fnew - f).  One template
+// on the side buffers' storage type; the arithmetic is otherwise the f32
+// mode's, so an iteration equals K4 (csrc/stripe_grad.cu) then K5
+// (csrc/project_lite.cu).  Per iteration and pixel-channel it moves 22 B
+// instead of 32 B.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -85,7 +96,7 @@ __constant__ float c_D[64] = {
 struct Chan {
   const int16_t* data;  // [B, hc, wc] quantized coefficients (read only)
   const float* q;       // [B, hc, wc] quant raster (read only)
-  float* devq;          // [B, hc, wc] prob carry, or null when the term is off
+  void* devq;           // [B, hc, wc] prob carry (f32, lite: bf16), or null
   float pa;             // p_alpha
   int pidx;             // prob column / window index, -1 when off
   int sy, sx, hc, wc;
@@ -95,8 +106,8 @@ struct Chan {
 
 struct Params {
   float* f;             // [B, C, H, W] iterate, updated in place
-  float* fista;         // [B, C, H, W] FISTA shadow, updated in place
-  float* grad;          // [B, C, H, W] scratch
+  void* fista;          // [B, C, H, W] FISTA shadow (lite: bf16 d = f - fista)
+  void* grad;           // [B, C, H, W] scratch (lite: bf16)
   const float* factors; // [nsteps]
   const int* ext;       // [B, 2] true (h, w)
   const float* steps;   // [B] step size
@@ -110,6 +121,24 @@ struct Params {
 };
 
 __device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
+
+// element i of a side buffer (f32, or bf16 in lite mode), through L2
+template <bool LITE>
+__device__ __forceinline__ float side_ld(const void* base, size_t i) {
+  if constexpr (LITE)
+    return __uint_as_float((uint32_t)__ldcg((const unsigned short*)base + i) << 16);
+  else
+    return __ldcg((const float*)base + i);
+}
+
+// store v to element i of a side buffer (bf16: round to nearest even)
+template <bool LITE>
+__device__ __forceinline__ void side_st(void* base, size_t i, float v) {
+  if constexpr (LITE)
+    ((uint16_t*)base)[i] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  else
+    ((float*)base)[i] = v;
+}
 
 // fixed-order block sum of v (per thread) -> returned on thread 0
 __device__ float block_total(float v, float* red) {
@@ -171,7 +200,7 @@ struct Smem {
 
 // ---------------------------------------------------------------- gradient
 
-template <int C, bool TGV>
+template <int C, bool TGV, bool LITE>
 __device__ __forceinline__ void grad_tile(const Params& p, float* smem,
                                           const float* Ds, int b, int tile,
                                           float factor, float (&acc)[C + 2]) {
@@ -193,7 +222,7 @@ __device__ __forceinline__ void grad_tile(const Params& p, float* smem,
   const int HT = p.ext[2 * b], WT = p.ext[2 * b + 1];
   const size_t HW = (size_t)H * W;
   const float* f = p.f + (size_t)b * C * HW;
-  const float* fista = p.fista + (size_t)b * C * HW;
+  const size_t side0 = (size_t)b * C * HW;   // this image in the side buffers
 
   __syncthreads();   // the previous item is done with shared memory
 
@@ -207,7 +236,10 @@ __device__ __forceinline__ void grad_tile(const Params& p, float* smem,
       float v = 0.f;
       if (in) {
         const float fv = ldcg(f + c * HW + o);
-        v = fv + factor * (fv - ldcg(fista + c * HW + o));
+        if constexpr (LITE)
+          v = fv + factor * side_ld<true>(p.fista, side0 + c * HW + o);
+        else
+          v = fv + factor * (fv - side_ld<false>(p.fista, side0 + c * HW + o));
       }
       e_s[c * EH * EW + i] = v;
     }
@@ -226,10 +258,11 @@ __device__ __forceinline__ void grad_tile(const Params& p, float* smem,
     const int r8 = (rows + 7) / 8 * 8;
     const int cols = min((x0 + TW - 1) / ch.sx + 1, ch.wc) - wx0[c];
     const int c8 = (cols + 7) / 8 * 8;
-    const float* dv = ch.devq + (size_t)b * ch.hc * ch.wc;
+    const size_t dv = (size_t)b * ch.hc * ch.wc;
     for (int i = tid; i < r8 * c8; i += NT) {
       const int r = i / c8, k = i % c8;
-      x_s[r * XS + k] = ldcg(dv + (size_t)(wy0[c] + r) * ch.wc + wx0[c] + k);
+      x_s[r * XS + k] = side_ld<LITE>(
+          ch.devq, dv + (size_t)(wy0[c] + r) * ch.wc + wx0[c] + k);
     }
     __syncthreads();
     // rows: T[u][j] = sum_v X[u][v] D[v][j] within each 8x8 block
@@ -315,7 +348,6 @@ __device__ __forceinline__ void grad_tile(const Params& p, float* smem,
 
   // 4. gather: two output pixels per thread
   const int tx = tid % TW, ty = tid / TW;
-  float* gout = p.grad + (size_t)b * C * HW;
 #pragma unroll
   for (int k = 0; k < TH / (NT / TW); ++k) {
     const int ly = ty + k * (NT / TW);
@@ -349,8 +381,8 @@ __device__ __forceinline__ void grad_tile(const Params& p, float* smem,
                              + (x / ch.sx - wx0[c])];
         g = g + ch.pa * v;
       }
-      gout[c * HW + o] = g;
-      acc[c] += g * g;
+      side_st<LITE>(p.grad, side0 + c * HW + o, g);
+      acc[c] += g * g;   // the f32 value, also in lite mode
     }
   }
 }
@@ -359,6 +391,7 @@ __device__ __forceinline__ void grad_tile(const Params& p, float* smem,
 
 // returns this thread's distance term; *key = b * NCOL + prob column of
 // the item's channel, or -1 when its prob term is off
+template <bool LITE>
 __device__ __forceinline__ float project_item(const Params& p, float* smem,
                                               const float* Ds,
                                               const float* scale_s, int b,
@@ -378,8 +411,6 @@ __device__ __forceinline__ float project_item(const Params& p, float* smem,
   const size_t HW = (size_t)p.H * W;
   const size_t plane = ((size_t)b * p.C + c) * HW;
   float* f = p.f + plane;
-  float* fista = p.fista + plane;
-  const float* g = p.grad + plane;
   const float scale = scale_s[b * p.C + c];
 
   __syncthreads();   // the previous item is done with shared memory
@@ -392,8 +423,9 @@ __device__ __forceinline__ float project_item(const Params& p, float* smem,
       for (int j = 0; j < sx; ++j) {
         const size_t o = (size_t)(py0 + i) * W + (px0 + j);
         const float fv = ldcg(f + o);
-        const float e = fv + factor * (fv - ldcg(fista + o));
-        sum += e - scale * ldcg(g + o);
+        const float e = LITE ? fv + factor * side_ld<true>(p.fista, plane + o)
+                             : fv + factor * (fv - side_ld<false>(p.fista, plane + o));
+        sum += e - scale * side_ld<LITE>(p.grad, plane + o);
       }
   }
   const float mean = sum * (1.f / (float)(sy * sx));
@@ -422,7 +454,7 @@ __device__ __forceinline__ float project_item(const Params& p, float* smem,
       const float iq = (q > 0.f && q < 549755813888.f) ? 1.f / q : 0.f;
       const float devp = (cl - dq) * iq;
       dist = devp * devp;
-      ch.devq[co] = devp * iq;
+      side_st<LITE>(ch.devq, co, devp * iq);
     }
   }
   __syncthreads();   // every thread has read T before A / T are rewritten
@@ -445,10 +477,12 @@ __device__ __forceinline__ float project_item(const Params& p, float* smem,
       for (int j = 0; j < sx; ++j) {
         const size_t o = (size_t)(py0 + i) * W + (px0 + j);
         const float fv = ldcg(f + o);
-        const float e = fv + factor * (fv - ldcg(fista + o));
-        const float fm = e - scale * ldcg(g + o);
-        fista[o] = fv;
-        f[o] = (fm - mean) + back;
+        const float e = LITE ? fv + factor * side_ld<true>(p.fista, plane + o)
+                             : fv + factor * (fv - side_ld<false>(p.fista, plane + o));
+        const float fm = e - scale * side_ld<LITE>(p.grad, plane + o);
+        const float fn = (fm - mean) + back;
+        side_st<LITE>(p.fista, plane + o, LITE ? fn - fv : fv);
+        f[o] = fn;
       }
   }
 
@@ -463,7 +497,7 @@ __device__ __forceinline__ float project_item(const Params& p, float* smem,
 // bound, and two blocks per SM hid too little of it (PERF.md)
 constexpr int MIN_BLOCKS = 3;
 
-template <int C, bool TGV>
+template <int C, bool TGV, bool LITE>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS) solve_kernel(Params p) {
   extern __shared__ float smem[];
   __shared__ float Ds[64];
@@ -496,7 +530,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) solve_kernel(Params p) {
           for (int j = 0; j < C + 2; ++j) acc[j] = 0.f;
           cur = b;
         }
-        grad_tile<C, TGV>(p, smem, Ds, b, w % p.tiles_img, factor, acc);
+        grad_tile<C, TGV, LITE>(p, smem, Ds, b, w % p.tiles_img, factor, acc);
       }
       if (cur >= 0) flush<C + 2>(acc, red, acc_s + cur * NCOL);
     }
@@ -532,8 +566,8 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) solve_kernel(Params p) {
       int cur = -1;
       for (int w = blockIdx.x; w < p.B * p.items_img; w += G) {
         int key;
-        const float d = project_item(p, smem, Ds, scale_s, w / p.items_img,
-                                     w % p.items_img, factor, &key);
+        const float d = project_item<LITE>(p, smem, Ds, scale_s, w / p.items_img,
+                                           w % p.items_img, factor, &key);
         if (key != cur) {
           if (cur >= 0) flush<1>(dacc, red, acc_s + cur);
           dacc[0] = 0.f;
@@ -552,24 +586,24 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) solve_kernel(Params p) {
   if (blockIdx.x == 0 && p.nsteps > 0) write_dists(p, p.nsteps - 1);
 }
 
-template <int C, bool TGV>
+template <int C, bool TGV, bool LITE>
 cudaError_t prepare(size_t* bytes) {
   *bytes = Smem<C, TGV>::FLOATS * sizeof(float);
   static_assert(Smem<C, TGV>::FLOATS * sizeof(float) <= 200 * 1024,
                 "tile exceeds a block's shared memory");
-  return cudaFuncSetAttribute(solve_kernel<C, TGV>,
+  return cudaFuncSetAttribute(solve_kernel<C, TGV, LITE>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)*bytes);
 }
 
-template <int C, bool TGV>
+template <int C, bool TGV, bool LITE>
 cudaError_t max_grid(int* blocks) {
   size_t bytes;
-  cudaError_t err = prepare<C, TGV>(&bytes);
+  cudaError_t err = prepare<C, TGV, LITE>(&bytes);
   if (err != cudaSuccess) return err;
   int per_sm = 0, dev = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, solve_kernel<C, TGV>, NT, bytes);
+      &per_sm, solve_kernel<C, TGV, LITE>, NT, bytes);
   if (err != cudaSuccess) return err;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -579,20 +613,36 @@ cudaError_t max_grid(int* blocks) {
   return per_sm > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
-template <int C, bool TGV>
+template <int C, bool TGV, bool LITE>
 cudaError_t launch(Params& p, int G, cudaStream_t stream) {
   int most = 0;
-  cudaError_t err = max_grid<C, TGV>(&most);
+  cudaError_t err = max_grid<C, TGV, LITE>(&most);
   if (err != cudaSuccess) return err;
   if (G < 1 || G > most) return cudaErrorCooperativeLaunchTooLarge;
   size_t bytes;
-  err = prepare<C, TGV>(&bytes);
+  err = prepare<C, TGV, LITE>(&bytes);
   if (err != cudaSuccess) return err;
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((void*)solve_kernel<C, TGV>, dim3(G),
+  err = cudaLaunchCooperativeKernel((void*)solve_kernel<C, TGV, LITE>, dim3(G),
                                     dim3(NT), args, bytes, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// the instantiations, indexed ((C - 1) * 2 + tgv) * 2 + lite
+using GridFn = cudaError_t (*)(int*);
+using LaunchFn = cudaError_t (*)(Params&, int, cudaStream_t);
+#define J2P_VARIANTS(F)                                                     \
+  {F<1, false, false>, F<1, false, true>, F<1, true, false>, F<1, true, true>, \
+   F<2, false, false>, F<2, false, true>, F<2, true, false>, F<2, true, true>, \
+   F<3, false, false>, F<3, false, true>, F<3, true, false>, F<3, true, true>, \
+   F<4, false, false>, F<4, false, true>, F<4, true, false>, F<4, true, true>}
+const GridFn kGrid[4 * MAXC] = J2P_VARIANTS(max_grid);
+const LaunchFn kLaunch[4 * MAXC] = J2P_VARIANTS(launch);
+#undef J2P_VARIANTS
+
+int variant(int C, int tgv, int lite) {
+  return ((C - 1) * 2 + (tgv ? 1 : 0)) * 2 + (lite ? 1 : 0);
 }
 
 }  // namespace
@@ -603,33 +653,25 @@ const char* j2p_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Co-resident blocks of the cooperative launch for (C, tgv) -> *blocks.
-int j2p_fused_solve_grid(int C, int tgv, int* blocks) {
-  switch (C * 2 + (tgv ? 1 : 0)) {
-    case 2: return (int)max_grid<1, false>(blocks);
-    case 3: return (int)max_grid<1, true>(blocks);
-    case 4: return (int)max_grid<2, false>(blocks);
-    case 5: return (int)max_grid<2, true>(blocks);
-    case 6: return (int)max_grid<3, false>(blocks);
-    case 7: return (int)max_grid<3, true>(blocks);
-    case 8: return (int)max_grid<4, false>(blocks);
-    case 9: return (int)max_grid<4, true>(blocks);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// Co-resident blocks of the cooperative launch for (C, tgv, lite) -> *blocks.
+int j2p_fused_solve_grid(int C, int tgv, int lite, int* blocks) {
+  if (C < 1 || C > MAXC) return (int)cudaErrorInvalidValue;
+  return (int)kGrid[variant(C, tgv, lite)](blocks);
 }
 
-// f, fista, grad: [B, C, H, W]; factors [nsteps]; ext [B, 2] int32;
+// f: [B, C, H, W] f32; fista, grad: [B, C, H, W] f32, or bf16 with lite
+// (fista then holds d = f - fista); factors [nsteps]; ext [B, 2] int32;
 // steps [B]; out [B, nsteps, 8] (zeroed by the caller); gpart [G, B, C+2];
-// dpart [G, B, max(P, 1)].  ptrs[3c..3c+2]: data (int16), q, devq of
-// channel c ([B, H/sy, W/sx]); ints[3c..3c+2]: sy, sx, prob index (-1:
-// off); pa[c]: p_alpha.  G: grid blocks, at most j2p_fused_solve_grid's.
-// Returns the first CUDA error, else 0.
-int j2p_fused_solve(float* f, float* fista, float* grad, const float* factors,
+// dpart [G, B, max(P, 1)].  ptrs[3c..3c+2]: data (int16), q (f32), devq
+// (f32, lite: bf16) of channel c ([B, H/sy, W/sx]); ints[3c..3c+2]: sy,
+// sx, prob index (-1: off); pa[c]: p_alpha.  G: grid blocks, at most
+// j2p_fused_solve_grid's.  Returns the first CUDA error, else 0.
+int j2p_fused_solve(float* f, void* fista, void* grad, const float* factors,
                     const int* ext, const float* steps, float* out,
                     float* gpart, float* dpart, const uint64_t* ptrs,
                     const int* ints, const float* pa, int B, int C, int H,
                     int W, int nsteps, int G, float alpha, float alpha2,
-                    int tgv, void* stream) {
+                    int tgv, int lite, void* stream) {
   if (C < 1 || C > MAXC || B < 1 || B > MAXB || nsteps < 0)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -663,7 +705,7 @@ int j2p_fused_solve(float* f, float* fista, float* grad, const float* factors,
       return (int)cudaErrorInvalidValue;
     ch.data = (const int16_t*)ptrs[3 * c];
     ch.q = (const float*)ptrs[3 * c + 1];
-    ch.devq = ch.pidx >= 0 ? (float*)ptrs[3 * c + 2] : nullptr;
+    ch.devq = ch.pidx >= 0 ? (void*)ptrs[3 * c + 2] : nullptr;
     ch.pa = pa[c];
     ch.hc = H / ch.sy;
     ch.wc = W / ch.sx;
@@ -675,17 +717,7 @@ int j2p_fused_solve(float* f, float* fista, float* grad, const float* factors,
   p.items_img = items;
   p.P = P;
   if (nsteps == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (C * 2 + (tgv ? 1 : 0)) {
-    case 2: return (int)launch<1, false>(p, G, s);
-    case 3: return (int)launch<1, true>(p, G, s);
-    case 4: return (int)launch<2, false>(p, G, s);
-    case 5: return (int)launch<2, true>(p, G, s);
-    case 6: return (int)launch<3, false>(p, G, s);
-    case 7: return (int)launch<3, true>(p, G, s);
-    case 8: return (int)launch<4, false>(p, G, s);
-    default: return (int)launch<4, true>(p, G, s);
-  }
+  return (int)kLaunch[variant(C, tgv, lite)](p, G, (cudaStream_t)stream);
 }
 
 }  // extern "C"

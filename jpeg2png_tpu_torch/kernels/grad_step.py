@@ -61,20 +61,16 @@ def _shift_y(a, d, rows, ht):
     return torch.where((src >= 0) & (src < ht), shift2d(a, d, 0), 0.0)
 
 
-def fused_grad_plain(fdatas, fistas, pgrads, factor: float, weight: float,
-                     h_true: int | None = None, w_true: int | None = None):
-    """Plain PyTorch version of fused_grad: the gather-form stencils of
-    ops/tv.py with the Pallas kernel's edge masks for a zero-padded
-    canvas (grad_step.py:96-138 of the JAX package)."""
-    f = stack_channels(fdatas)
-    fi = stack_channels(fistas)
-    C, H, W = f.shape
-    HT = H if h_true is None else int(h_true)
-    WT = W if w_true is None else int(w_true)
-    rows = torch.arange(H, device=f.device)[:, None]
-    cols = torch.arange(W, device=f.device)[None, :]
-
-    e = f + factor * (f - fi)
+def stencil(e, rows, cols, HT: int, WT: int, weight: float):
+    """The joint TV + TGV2 gather of the extrapolated iterate e [C, T, W]
+    (compute.c:73-197), with the JAX kernels' edge masks
+    (jpeg2png_tpu/kernels/grad_step.py:77-158).  rows [T, 1] holds the
+    global row of each row of e (a band and its halos), cols [1, W];
+    HT, WT the true extent.  Returns (grad [C, T, W], not yet zeroed
+    outside the extent; the TV norm |g| [T, W]; the TGV2 norm [T, W], or
+    None at weight 0).  The objective terms are alpha and tgv_alpha times
+    their sums."""
+    C = e.shape[0]
     gx = torch.where(cols < WT - 1, shift2d(e, 0, -1) - e, 0.0)
     gy = torch.where(rows < HT - 1, shift2d(e, -1, 0) - e, 0.0)
 
@@ -85,12 +81,11 @@ def fused_grad_plain(fdatas, fistas, pgrads, factor: float, weight: float,
     a = gx * inv
     b = gy * inv
     grad = (-(a + b) + shift2d(a, 0, 1) + _shift_y(b, 1, rows, HT)) * alpha
-    tv = alpha * torch.sum(g_norm)
-    tv2 = torch.zeros((), device=f.device)
+    n2 = None
 
     # ---- TGV2 term (compute.c:128-197 in gather form) ----
     if weight != 0.0:
-        alpha2 = (weight / math.sqrt(2.0)) / math.sqrt(C)
+        alpha2 = tgv_alpha(C, weight)
         g_xx = torch.where(cols >= 1, gx - shift2d(gx, 0, 1), 0.0)
         # the x-diff of gy at pad column WT and the y-diffs at pad row HT
         # would read a spurious boundary value (JAX grad_step.py:127-138)
@@ -114,8 +109,31 @@ def fused_grad_plain(fdatas, fistas, pgrads, factor: float, weight: float,
               + shift2d(_shift_y(r, -1, rows, HT), 0, 1)
               + shift2d(_shift_y(r, 1, rows, HT), 0, -1))
         grad = grad + alpha2 * g2
-        tv2 = alpha2 * torch.sum(n2)
+    return grad, g_norm, n2
 
+
+def tgv_alpha(C: int, weight: float) -> float:
+    return (weight / math.sqrt(2.0)) / math.sqrt(C)
+
+
+def fused_grad_plain(fdatas, fistas, pgrads, factor: float, weight: float,
+                     h_true: int | None = None, w_true: int | None = None):
+    """Plain PyTorch version of fused_grad: the gather-form stencils of
+    ops/tv.py with the Pallas kernel's edge masks for a zero-padded
+    canvas (grad_step.py:96-138 of the JAX package)."""
+    f = stack_channels(fdatas)
+    fi = stack_channels(fistas)
+    C, H, W = f.shape
+    HT = H if h_true is None else int(h_true)
+    WT = W if w_true is None else int(w_true)
+    rows = torch.arange(H, device=f.device)[:, None]
+    cols = torch.arange(W, device=f.device)[None, :]
+
+    e = f + factor * (f - fi)
+    grad, g_norm, n2 = stencil(e, rows, cols, HT, WT, weight)
+    tv = (1.0 / math.sqrt(C)) * torch.sum(g_norm)
+    tv2 = (torch.zeros((), device=f.device) if n2 is None
+           else tgv_alpha(C, weight) * torch.sum(n2))
     if HT < H or WT < W:
         grad = torch.where((rows < HT) & (cols < WT), grad, 0.0)
     pg = [p for p in pgrads if p is not None]

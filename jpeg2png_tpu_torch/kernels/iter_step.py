@@ -41,8 +41,25 @@ does about it: nothing beyond K1 + K2 yet (the state goes through
 device memory every iteration); it removes the per-iteration launches
 and host work, which bound small images.
 
-On a CPU tensor the wrapper runs the plain PyTorch version below; on a
-CUDA tensor it launches the kernel or raises.
+Lite mode (fused_solve(..., lite=True), and fused_solve_lite on the
+bf16 state itself) replaces the TPU kernel's `lite=True`
+(jpeg2png_tpu/kernels/iter_step.py:664-670, 758-761): the FISTA state is
+carried as the bf16 difference d = f - fista, the gradient and the devq
+carry are bf16, the iterate stays f32:
+
+    e      = f + factor_i * d
+    grad   = bf16(TV + TGV2 gather + prob gradient), sumsq from the f32 value
+    fnew   = the projection of e - scale * grad, as above
+    d      = bf16(fnew - f),  devq = bf16((clamp - dq) * iq * iq),  f = fnew
+
+one iteration is exactly K4 (kernels/stripe_grad.py) then K5
+(kernels/project_step.py::fused_project_multi_lite) on the whole canvas,
+which is what the plain version runs.  The kernel is the same source,
+templated on the storage type of its side buffers: 10 B less per pixel
+and channel move each iteration.
+
+On a CPU tensor the wrappers run the plain PyTorch versions below; on a
+CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -56,7 +73,10 @@ import torch
 from jpeg2png_tpu_torch.kernels import _build
 from jpeg2png_tpu_torch.kernels.grad_step import (
     MAX_CHANNELS, fused_grad_plain, stack_channels)
-from jpeg2png_tpu_torch.kernels.project_step import FREE_Q_MIN
+from jpeg2png_tpu_torch.kernels.project_step import (
+    boxes, fused_project_multi_lite_plain)
+from jpeg2png_tpu_torch.kernels.stripe_grad import (
+    fused_grad_striped_lite_plain)
 from jpeg2png_tpu_torch.ops.dct_raster import idct_raster
 from jpeg2png_tpu_torch.ops.projection import project_channel_raster
 from jpeg2png_tpu_torch.ops.resample import upsample_replicate
@@ -93,76 +113,93 @@ def fista_factors(t0: float, nsteps: int):
     return out, t
 
 
-def _boxes(data_i16, q):
-    """(lo, hi, dq, iq) from an int16 coefficient raster and its f32
-    quant raster (jpeg.c:86, compute.c:323-331), with the frozen (q == 0)
-    and FREE (q >= FREE_Q_MIN) rules of project_step.py."""
-    dq = data_i16.to(torch.float32) * q
-    lo = dq - 0.5 * q
-    hi = dq + 0.5 * q
-    iq = torch.where((q > 0.0) & (q < FREE_Q_MIN), 1.0 / q,
-                     torch.zeros((), dtype=q.dtype, device=q.device))
-    return lo, hi, dq, iq
-
-
-def _solve_one(f, fi, devqs, factors, step, datas, qs, p_alpha_sss, samps,
-               weight, h_true, w_true):
-    """nsteps iterations for one image: f, fi [C, H, W]; devqs list per
-    prob channel; datas, qs per channel.  Returns (f, fi, devqs, rows)."""
-    C = f.shape[0]
+def _solve_one(f, side, devqs, factors, step, datas, qs, p_alpha_sss, samps,
+               weight, h_true, w_true, lite):
+    """nsteps iterations for one image: f [C, H, W] f32, side the FISTA
+    shadow (f32) or, `lite`, the bf16 difference d; devqs list per prob
+    channel (bf16 when lite); datas, qs per channel.  Returns (f, side,
+    devqs, rows)."""
+    C, H, W = f.shape
     prob = [pa != 0.0 for pa in p_alpha_sss]
-    boxes = [_boxes(d, q) for d, q in zip(datas, qs)]
+    bx = None if lite else [boxes(d, q) for d, q in zip(datas, qs)]
     rows = []
     for factor in factors:
-        it = iter(devqs)
-        pgrads = []
-        for c, (sy, sx) in enumerate(samps):
-            if not prob[c]:
-                pgrads.append(None)
-                continue
-            pa = p_alpha_sss[c] / (sy * sx)
-            pgrads.append(pa * upsample_replicate(idct_raster(next(it)),
-                                                  sy, sx))
-        grad, e, sumsq, tv, tv2 = fused_grad_plain(
-            f, fi, pgrads, float(factor), weight, h_true, w_true)
+        if lite:
+            # one iteration of the lite body: K4 then K5, whole canvas
+            grad, sumsq, tv, tv2 = fused_grad_striped_lite_plain(
+                f, side, devqs, None, float(factor), 0, weight, samps,
+                p_alpha_sss, H, h_true, w_true)
+        else:
+            it = iter(devqs)
+            pgrads = []
+            for c, (sy, sx) in enumerate(samps):
+                if not prob[c]:
+                    pgrads.append(None)
+                    continue
+                pa = p_alpha_sss[c] / (sy * sx)
+                pgrads.append(pa * upsample_replicate(
+                    idct_raster(next(it)), sy, sx))
+            grad, e, sumsq, tv, tv2 = fused_grad_plain(
+                f, side, pgrads, float(factor), weight, h_true, w_true)
         norms = torch.sqrt(sumsq)
         scale = torch.where(norms == 0.0, 0.0, step / norms)
-        fnews, new_devqs, dists = [], [], []
-        for c, (sy, sx) in enumerate(samps):
-            lo, hi, dq, iq = boxes[c]
-            fmid = e[c] - scale[c] * grad[c]
-            fnew, clamped = project_channel_raster(fmid, lo, hi, sy, sx)
-            fnews.append(fnew)
-            if prob[c]:
-                devp = (clamped - dq) * iq
-                dists.append(0.5 * torch.sum(devp * devp))
-                new_devqs.append(devp * iq)
-        fi, f = f, torch.stack(fnews)
-        devqs = new_devqs
+        if lite:
+            f, side, new_devqs, dists = fused_project_multi_lite_plain(
+                f, side, grad, float(factor), scale, datas, qs,
+                p_alpha_sss, samps)
+            devqs = [d for d in new_devqs if d is not None]
+            dists = [d for d, p in zip(dists, prob) if p]
+        else:
+            fnews, devqs, dists = [], [], []
+            for c, (sy, sx) in enumerate(samps):
+                lo, hi, dq, iq = bx[c]
+                fmid = e[c] - scale[c] * grad[c]
+                fnew, clamped = project_channel_raster(fmid, lo, hi, sy, sx)
+                fnews.append(fnew)
+                if prob[c]:
+                    devp = (clamped - dq) * iq
+                    dists.append(0.5 * torch.sum(devp * devp))
+                    devqs.append(devp * iq)
+            side, f = f, torch.stack(fnews)
         row = torch.zeros((PARTIAL_COLS,), device=f.device)
         vals = torch.cat([sumsq, tv.reshape(1), tv2.reshape(1)]
                          + [d.reshape(1) for d in dists])
         row[:C + 2 + len(dists)] = vals
         rows.append(row)
-    return f, fi, devqs, rows
+    return f, side, devqs, rows
 
 
-def _as_batch(f0s, fista0s, devq0s, datas_i16, q_rs, extents):
+def _as_batch(f0s, side0s, devq0s, datas_i16, q_rs, extents):
     """Normalize static (one image) and dynamic (leading batch dim)
     arguments to the batched layout."""
     f = stack_channels(f0s)
-    fi = stack_channels(fista0s)
+    side = stack_channels(side0s)
     if extents is None:
-        return (f[None], fi[None], [d[None] for d in devq0s],
+        return (f[None], side[None], [d[None] for d in devq0s],
                 [d[None] for d in datas_i16], [q[None] for q in q_rs])
-    return f, fi, list(devq0s), list(datas_i16), list(q_rs)
+    return f, side, list(devq0s), list(datas_i16), list(q_rs)
 
 
-def fused_solve_plain(f0s, fista0s, devq0s, factors, step_size, datas_i16,
-                      q_rs, p_alpha_sss, samps, weight, extents=None):
-    """Plain PyTorch version of fused_solve (same signature)."""
-    f, fi, devqs, datas, qs = _as_batch(f0s, fista0s, devq0s, datas_i16,
-                                        q_rs, extents)
+def _to_lite(f0s, fista0s, devq0s):
+    """The f32 (f, fista, devq) interface -> the lite state (f, d, devq
+    bf16), as the TPU kernel converts it (iter_step.py:664-670)."""
+    f = stack_channels(f0s)
+    d = (f - stack_channels(fista0s)).to(torch.bfloat16)
+    return f, d, [x.to(torch.bfloat16) for x in devq0s]
+
+
+def _from_lite(out):
+    """The lite state back to the f32 interface: fista = f - d
+    (iter_step.py:758-761)."""
+    f, d, devqs, partials = out
+    return (f, f - d.to(torch.float32),
+            [x.to(torch.float32) for x in devqs], partials)
+
+
+def _plain(f0s, side0s, devq0s, factors, step_size, datas_i16, q_rs,
+           p_alpha_sss, samps, weight, extents, lite):
+    f, side, devqs, datas, qs = _as_batch(f0s, side0s, devq0s, datas_i16,
+                                          q_rs, extents)
     B, C, H, W = f.shape
     factors = np.asarray(torch.as_tensor(factors).cpu(), np.float32)
     if extents is None:
@@ -177,19 +214,39 @@ def fused_solve_plain(f0s, fista0s, devq0s, factors, step_size, datas_i16,
         # the step scale is an f32 quantity like the kernel's
         step = float(np.float32(steps[b]))
         outs.append(_solve_one(
-            f[b], fi[b], [d[b] for d in devqs], factors, step,
+            f[b], side[b], [d[b] for d in devqs], factors, step,
             [d[b] for d in datas], [q[b] for q in qs], p_alpha_sss, samps,
-            weight, exts[b][0], exts[b][1]))
+            weight, exts[b][0], exts[b][1], lite))
     fo = torch.stack([o[0] for o in outs])
-    fio = torch.stack([o[1] for o in outs])
+    so = torch.stack([o[1] for o in outs])
     P = len(devqs)
     dqo = [torch.stack([o[2][p] for o in outs]) for p in range(P)]
     part = torch.stack([torch.stack(o[3]) if o[3] else
                         torch.zeros((0, PARTIAL_COLS), device=f.device)
                         for o in outs])
     if extents is None:
-        return fo[0], fio[0], [d[0] for d in dqo], part[0]
-    return fo, fio, dqo, part
+        return fo[0], so[0], [d[0] for d in dqo], part[0]
+    return fo, so, dqo, part
+
+
+def fused_solve_plain(f0s, fista0s, devq0s, factors, step_size, datas_i16,
+                      q_rs, p_alpha_sss, samps, weight, extents=None,
+                      lite=False):
+    """Plain PyTorch version of fused_solve (same signature)."""
+    if lite:
+        f, d, devqs = _to_lite(f0s, fista0s, devq0s)
+        return _from_lite(fused_solve_lite_plain(
+            f, d, devqs, factors, step_size, datas_i16, q_rs, p_alpha_sss,
+            samps, weight, extents))
+    return _plain(f0s, fista0s, devq0s, factors, step_size, datas_i16, q_rs,
+                  p_alpha_sss, samps, weight, extents, False)
+
+
+def fused_solve_lite_plain(f0s, d0s, devq0s, factors, step_size, datas_i16,
+                           q_rs, p_alpha_sss, samps, weight, extents=None):
+    """Plain PyTorch version of fused_solve_lite (same signature)."""
+    return _plain(f0s, d0s, devq0s, factors, step_size, datas_i16, q_rs,
+                  p_alpha_sss, samps, weight, extents, True)
 
 
 def fused_iteration(fdatas, fistas, devqs, factor, step_size, datas_i16,
@@ -209,14 +266,14 @@ def fused_iteration(fdatas, fistas, devqs, factor, step_size, datas_i16,
 
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 6          # f, fista, grad, factors, extents, steps
+    [ctypes.c_void_p] * 6          # f, fista (lite: d), grad, factors, extents, steps
     + [ctypes.c_void_p] * 3        # partials out, gpart, dpart
     + [ctypes.POINTER(ctypes.c_uint64),   # per channel data, q, devq
        ctypes.POINTER(ctypes.c_int),      # per channel sy, sx, devq index
        ctypes.POINTER(ctypes.c_float)]    # per channel p_alpha
     + [ctypes.c_int] * 6           # B, C, H, W, nsteps, grid blocks
     + [ctypes.c_float] * 2         # alpha, alpha2
-    + [ctypes.c_int]               # tgv
+    + [ctypes.c_int] * 2           # tgv, lite
     + [ctypes.c_void_p]            # stream
 )
 
@@ -228,20 +285,19 @@ def _launcher():
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
         grid = lib.j2p_fused_solve_grid
-        grid.argtypes = [ctypes.c_int, ctypes.c_int,
-                         ctypes.POINTER(ctypes.c_int)]
+        grid.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
         grid.restype = ctypes.c_int
     return lib, fn
 
 
-def grid_blocks(C: int, weight: float) -> int:
+def grid_blocks(C: int, weight: float, lite: bool = False) -> int:
     """Blocks of the cooperative launch (co-resident blocks per SM times
-    the SMs) for this channel count and TGV2 setting."""
+    the SMs) for this channel count, TGV2 setting and mode."""
     lib, _ = _launcher()
     n = ctypes.c_int(0)
-    _build.check(lib, lib.j2p_fused_solve_grid(C, int(weight != 0.0),
-                                               ctypes.byref(n)),
-                 "fused_solve grid")
+    _build.check(lib, lib.j2p_fused_solve_grid(
+        C, int(weight != 0.0), int(lite), ctypes.byref(n)),
+        "fused_solve grid")
     return n.value
 
 
@@ -253,8 +309,91 @@ def _check(t, name, shape, dtype, device):
             f"on {device}, got {t.dtype} {list(t.shape)} on {t.device}")
 
 
+def _launch(f0s, side0s, devq0s, factors, step_size, datas_i16, q_rs,
+            p_alpha_sss, samps, weight, extents, lite):
+    """Check the arguments and launch K3 on copies of the state.  Returns
+    (f, side, devqs, partials) in the callers' layout, and whether the
+    kernel launched (nsteps > 0)."""
+    dev = stack_channels(f0s).device
+    fb, sideb, devqs, datas, qs = _as_batch(f0s, side0s, devq0s, datas_i16,
+                                            q_rs, extents)
+    B, C, H, W = fb.shape
+    side_t = torch.bfloat16 if lite else torch.float32
+    P = sum(1 for p in p_alpha_sss if p != 0.0)
+    if (len(samps) != C or len(datas) != C or len(qs) != C
+            or len(p_alpha_sss) != C or len(devqs) != P):
+        raise ValueError("fused_solve: per-channel argument counts differ")
+    if not supports(C, H, W, samps, P):
+        raise ValueError(f"fused_solve: geometry C={C} {H}x{W} samps={samps} "
+                         f"P={P} is outside the kernel's gate")
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"fused_solve: batch {B} outside 1..{MAX_BATCH}")
+    _check(fb, "fdatas", (B, C, H, W), torch.float32, dev)
+    _check(sideb, "fistas" if not lite else "ds", (B, C, H, W), side_t, dev)
+    factors = torch.as_tensor(np.asarray(torch.as_tensor(factors).cpu(),
+                                         np.float32), device=dev)
+    nsteps = int(factors.shape[0])
+    if extents is None:
+        ext = torch.tensor([[H, W]], dtype=torch.int32, device=dev)
+        steps = torch.tensor([float(step_size)], dtype=torch.float32,
+                             device=dev)
+    else:
+        ext, steps = extents, step_size
+        _check(ext, "extents", (B, 2), torch.int32, dev)
+        _check(steps, "step_size", (B,), torch.float32, dev)
+        lim = ext.cpu()
+        if bool(((lim < 1) | (lim > torch.tensor([H, W]))).any()):
+            raise ValueError(f"fused_solve: extents {lim.tolist()} outside "
+                             f"the {H}x{W} canvas")
+
+    # the kernel updates its state in place: work on copies
+    f_out = fb.clone()
+    side_out = sideb.clone()
+    ptrs = (ctypes.c_uint64 * (3 * C))()
+    ints = (ctypes.c_int * (3 * C))()
+    pas = (ctypes.c_float * C)()
+    dq_out = []
+    k = 0
+    for c, (sy, sx) in enumerate(samps):
+        shp = (B, H // sy, W // sx)
+        _check(datas[c], f"datas_i16[{c}]", shp, torch.int16, dev)
+        _check(qs[c], f"q_rs[{c}]", shp, torch.float32, dev)
+        ptrs[3 * c] = datas[c].data_ptr()
+        ptrs[3 * c + 1] = qs[c].data_ptr()
+        if p_alpha_sss[c] != 0.0:
+            _check(devqs[k], f"devq0s[{k}]", shp, side_t, dev)
+            d = devqs[k].clone()
+            dq_out.append(d)
+            ptrs[3 * c + 2] = d.data_ptr()
+            ints[3 * c:3 * c + 3] = [sy, sx, k]
+            k += 1
+        else:
+            ints[3 * c:3 * c + 3] = [sy, sx, -1]
+        pas[c] = p_alpha_sss[c] / (sy * sx)
+    partials = torch.zeros((B, nsteps, PARTIAL_COLS), device=dev)
+    if nsteps:
+        G = grid_blocks(C, weight, lite)
+        grad = torch.empty_like(side_out)
+        gpart = torch.empty((G, B, C + 2), device=dev)
+        dpart = torch.empty((G, B, max(P, 1)), device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        lib, fn = _launcher()
+        err = fn(f_out.data_ptr(), side_out.data_ptr(), grad.data_ptr(),
+                 factors.data_ptr(), ext.data_ptr(), steps.data_ptr(),
+                 partials.data_ptr(), gpart.data_ptr(), dpart.data_ptr(),
+                 ptrs, ints, pas, B, C, H, W, nsteps, G,
+                 1.0 / math.sqrt(C), (weight / math.sqrt(2.0)) / math.sqrt(C),
+                 int(weight != 0.0), int(lite), stream)
+        _build.check(lib, err, "fused_solve")
+    if extents is None:
+        out = f_out[0], side_out[0], [d[0] for d in dq_out], partials[0]
+    else:
+        out = f_out, side_out, dq_out, partials
+    return out, nsteps > 0
+
+
 def fused_solve(f0s, fista0s, devq0s, factors, step_size, datas_i16, q_rs,
-                p_alpha_sss, samps, weight, extents=None):
+                p_alpha_sss, samps, weight, extents=None, lite=False):
     """Run `nsteps = len(factors)` solver iterations in one launch (K3).
 
     Args:
@@ -274,92 +413,50 @@ def fused_solve(f0s, fista0s, devq0s, factors, step_size, datas_i16, q_rs,
         weight: TGV2 weight.
         extents: None (static: the true extent is the canvas) or [B, 2]
             int32 true (h, w) per image (dynamic-extent bucket mode).
+        lite: run the lite mode (fused_solve_lite) behind this f32
+            interface, converting at the edges like the TPU kernel.
     Returns:
         (fdatas, fistas, devqs_out list, partials [nsteps, 8]) — with
         `extents`, fdatas/fistas [B, C, H, W], devqs [B, hc, wc] and
         partials [B, nsteps, 8].
     """
-    f = stack_channels(f0s)
-    if f.device.type == "cpu":
+    if stack_channels(f0s).device.type == "cpu":
         return fused_solve_plain(f0s, fista0s, devq0s, factors, step_size,
                                  datas_i16, q_rs, p_alpha_sss, samps,
-                                 weight, extents)
-    if f.device.type != "cuda":
-        raise ValueError(f"fused_solve: unsupported device {f.device}")
-    dev = f.device
-    fb, fib, devqs, datas, qs = _as_batch(f0s, fista0s, devq0s, datas_i16,
-                                          q_rs, extents)
-    B, C, H, W = fb.shape
-    P = sum(1 for p in p_alpha_sss if p != 0.0)
-    if (len(samps) != C or len(datas) != C or len(qs) != C
-            or len(p_alpha_sss) != C or len(devqs) != P):
-        raise ValueError("fused_solve: per-channel argument counts differ")
-    if not supports(C, H, W, samps, P):
-        raise ValueError(f"fused_solve: geometry C={C} {H}x{W} samps={samps} "
-                         f"P={P} is outside the kernel's gate")
-    if not 1 <= B <= MAX_BATCH:
-        raise ValueError(f"fused_solve: batch {B} outside 1..{MAX_BATCH}")
-    _check(fb, "fdatas", (B, C, H, W), torch.float32, dev)
-    _check(fib, "fistas", (B, C, H, W), torch.float32, dev)
-    factors = torch.as_tensor(np.asarray(torch.as_tensor(factors).cpu(),
-                                         np.float32), device=dev)
-    nsteps = int(factors.shape[0])
-    if extents is None:
-        ext = torch.tensor([[H, W]], dtype=torch.int32, device=dev)
-        steps = torch.tensor([float(step_size)], dtype=torch.float32,
-                             device=dev)
-    else:
-        ext, steps = extents, step_size
-        _check(ext, "extents", (B, 2), torch.int32, dev)
-        _check(steps, "step_size", (B,), torch.float32, dev)
-        lim = ext.cpu()
-        if bool(((lim < 1) | (lim > torch.tensor([H, W]))).any()):
-            raise ValueError(f"fused_solve: extents {lim.tolist()} outside "
-                             f"the {H}x{W} canvas")
+                                 weight, extents, lite)
+    if stack_channels(f0s).device.type != "cuda":
+        raise ValueError(
+            f"fused_solve: unsupported device {stack_channels(f0s).device}")
+    if lite:
+        f, d, devqs = _to_lite(f0s, fista0s, devq0s)
+        return _from_lite(fused_solve_lite(
+            f, d, devqs, factors, step_size, datas_i16, q_rs, p_alpha_sss,
+            samps, weight, extents))
+    out, launched = _launch(f0s, fista0s, devq0s, factors, step_size,
+                            datas_i16, q_rs, p_alpha_sss, samps, weight,
+                            extents, False)
+    fused_solve.launches += launched
+    return out
 
-    # the kernel updates its state in place: work on copies
-    f_out = fb.clone()
-    fi_out = fib.clone()
-    ptrs = (ctypes.c_uint64 * (3 * C))()
-    ints = (ctypes.c_int * (3 * C))()
-    pas = (ctypes.c_float * C)()
-    dq_out = []
-    k = 0
-    for c, (sy, sx) in enumerate(samps):
-        shp = (B, H // sy, W // sx)
-        _check(datas[c], f"datas_i16[{c}]", shp, torch.int16, dev)
-        _check(qs[c], f"q_rs[{c}]", shp, torch.float32, dev)
-        ptrs[3 * c] = datas[c].data_ptr()
-        ptrs[3 * c + 1] = qs[c].data_ptr()
-        if p_alpha_sss[c] != 0.0:
-            _check(devqs[k], f"devq0s[{k}]", shp, torch.float32, dev)
-            d = devqs[k].clone()
-            dq_out.append(d)
-            ptrs[3 * c + 2] = d.data_ptr()
-            ints[3 * c:3 * c + 3] = [sy, sx, k]
-            k += 1
-        else:
-            ints[3 * c:3 * c + 3] = [sy, sx, -1]
-        pas[c] = p_alpha_sss[c] / (sy * sx)
-    partials = torch.zeros((B, nsteps, PARTIAL_COLS), device=dev)
-    if nsteps:
-        G = grid_blocks(C, weight)
-        grad = torch.empty_like(f_out)
-        gpart = torch.empty((G, B, C + 2), device=dev)
-        dpart = torch.empty((G, B, max(P, 1)), device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        lib, fn = _launcher()
-        err = fn(f_out.data_ptr(), fi_out.data_ptr(), grad.data_ptr(),
-                 factors.data_ptr(), ext.data_ptr(), steps.data_ptr(),
-                 partials.data_ptr(), gpart.data_ptr(), dpart.data_ptr(),
-                 ptrs, ints, pas, B, C, H, W, nsteps, G,
-                 1.0 / math.sqrt(C), (weight / math.sqrt(2.0)) / math.sqrt(C),
-                 int(weight != 0.0), stream)
-        _build.check(lib, err, "fused_solve")
-        fused_solve.launches += 1
-    if extents is None:
-        return f_out[0], fi_out[0], [d[0] for d in dq_out], partials[0]
-    return f_out, fi_out, dq_out, partials
+
+def fused_solve_lite(f0s, d0s, devq0s, factors, step_size, datas_i16, q_rs,
+                     p_alpha_sss, samps, weight, extents=None):
+    """K3's lite mode on the lite state itself: fused_solve's arguments
+    and results with d = f - fista ([C, H, W] or [B, C, H, W] bfloat16)
+    in place of fista and bfloat16 devq carries.  The solver's mega-lite
+    tier and the dyn serving class carry this state across chunks."""
+    if stack_channels(f0s).device.type == "cpu":
+        return fused_solve_lite_plain(f0s, d0s, devq0s, factors, step_size,
+                                      datas_i16, q_rs, p_alpha_sss, samps,
+                                      weight, extents)
+    if stack_channels(f0s).device.type != "cuda":
+        raise ValueError("fused_solve_lite: unsupported device "
+                         f"{stack_channels(f0s).device}")
+    out, launched = _launch(f0s, d0s, devq0s, factors, step_size, datas_i16,
+                            q_rs, p_alpha_sss, samps, weight, extents, True)
+    fused_solve_lite.launches += launched
+    return out
 
 
 fused_solve.launches = 0
+fused_solve_lite.launches = 0

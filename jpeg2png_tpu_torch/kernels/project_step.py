@@ -1,4 +1,4 @@
-"""Fused normalized step + box projection + prob gradient (K2).
+"""Fused normalized step + box projection: K2 and its lite form K5.
 
 Replaces the Pallas kernel
 jpeg2png_tpu/kernels/project_step.py::fused_project_multi
@@ -42,6 +42,20 @@ Region gaps (a channel whose own region is smaller than the canvas)
 carry unconstrained boxes lo = -2^39, hi = +2^39 with dq = iq = 0, so
 the clamp is a no-op there and the prob term is exactly zero
 (jpeg2png_tpu/models/solver.py:655-680).
+
+K5, fused_project_multi_lite, replaces the Pallas kernel
+jpeg2png_tpu/kernels/project_step.py::fused_project_multi_lite
+(`_kernel_multi_lite`, `_stripe_math_lite`): the lite tiers' projection.
+It takes f (f32), d = f - fista and the gradient (bf16), rebuilds
+e = f + factor * d, builds the boxes from the int16 coefficient raster
+and the f32 quant raster (q == 0 frozen padding, q >= FREE_Q_MIN a
+region gap), and writes fnew (f32), dnew = fnew - f (bf16), devq =
+(clamp - dq) / q^2 (bf16, the next gradient's prob carry) and the
+distances; no pixel-space prob gradient.  The projection is the same
+mean/residual reconstruction in f32 as K2's, not the TPU kernel's
+correction form with a single-pass bf16 backward transform.  CUDA
+version: csrc/project_lite.cu, K2's design; bound by memory (12 B per
+pixel and channel, 8 B per coefficient).
 """
 
 from __future__ import annotations
@@ -187,3 +201,149 @@ def fused_project_multi(extraps, grads, scales, los, his, dqs, iqs,
 
 
 fused_project_multi.launches = 0
+
+
+def boxes(data_i16, q):
+    """(lo, hi, dq, iq) from an int16 coefficient raster and its f32
+    quant raster (jpeg.c:86, compute.c:323-331): q == 0 is frozen canvas
+    padding (box [0, 0], iq = 0), q >= FREE_Q_MIN a region gap (box
+    +-2^39 around 0, iq = 0)."""
+    dq = data_i16.to(torch.float32) * q
+    lo = dq - 0.5 * q
+    hi = dq + 0.5 * q
+    iq = torch.where((q > 0.0) & (q < FREE_Q_MIN), 1.0 / q,
+                     torch.zeros((), dtype=q.dtype, device=q.device))
+    return lo, hi, dq, iq
+
+
+# ---------------------------------------------------------------------------
+# K5: the lite projection (the two-lite tier's second kernel)
+# ---------------------------------------------------------------------------
+
+def fused_project_multi_lite_plain(fdatas, ds, grads, factor, scales,
+                                   datas_i16, q_rs, pa_sss, samps):
+    """Plain PyTorch version of fused_project_multi_lite, from ops/ (the
+    same mean/residual reconstruction as fused_project_multi_plain)."""
+    f = stack_channels(fdatas)
+    d = stack_channels(ds).to(torch.float32)
+    g = stack_channels(grads).to(torch.float32)
+    fnews, devqs, dists = [], [], []
+    for c, (sy, sx) in enumerate(samps):
+        fmid = (f[c] + float(factor) * d[c]) - scales[c] * g[c]
+        lo, hi, dq, iq = boxes(datas_i16[c], q_rs[c])
+        fnew, clamped = project_channel_raster(fmid, lo, hi, sy, sx)
+        fnews.append(fnew)
+        if pa_sss[c] == 0.0:
+            devqs.append(None)
+            dists.append(torch.zeros((), device=f.device))
+            continue
+        devp = (clamped - dq) * iq
+        dists.append(0.5 * torch.sum(devp * devp))
+        devqs.append((devp * iq).to(torch.bfloat16))
+    fnew = torch.stack(fnews)
+    return fnew, (fnew - f).to(torch.bfloat16), devqs, torch.stack(dists)
+
+
+_LITE_ARGTYPES = (
+    [ctypes.c_void_p] * 8            # f, d, g, scales, fnew, dnew, part, dists
+    + [ctypes.POINTER(ctypes.c_uint64),   # per channel data, q, devq out
+       ctypes.POINTER(ctypes.c_int)]      # per channel sy, sx
+    + [ctypes.c_float]               # factor
+    + [ctypes.c_int] * 3             # C, H, W
+    + [ctypes.c_void_p]              # stream
+)
+
+
+def _lite_launcher():
+    lib = _build.library("project_lite")
+    fn = lib.j2p_fused_project_lite
+    if fn.argtypes is None:
+        fn.argtypes = _LITE_ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def fused_project_multi_lite(fdatas, ds, grads, factor, scales, datas_i16,
+                             q_rs, pa_sss, samps):
+    """All channels' lite normalized step + projection in one launch (K5).
+
+    Args:
+        fdatas: [C, H, W] float32 iterates (or per-channel lists).
+        ds: [C, H, W] bfloat16 FISTA differences d = f - fista.
+        grads: [C, H, W] bfloat16 gradients (K4).
+        factor: host float FISTA extrapolation factor.
+        scales: [C] float32 device tensor of step_size / norm.
+        datas_i16: per channel [H/sy, W/sx] int16 coefficient rasters.
+        q_rs: per channel float32 quant rasters of the same shape (0:
+            frozen padding, >= FREE_Q_MIN: region gap).
+        pa_sss: per channel host floats p_alpha * sy * sx (0 = prob off).
+        samps: per channel (sy, sx).
+    Returns:
+        (fnews [C, H, W] float32, dnews [C, H, W] bfloat16 = fnew - f,
+         devqs list of bfloat16 [H/sy, W/sx] with None where prob is off,
+         dists [C] — per-channel prob distances, 0 where off).
+    """
+    f = stack_channels(fdatas)
+    if f.device.type == "cpu":
+        return fused_project_multi_lite_plain(fdatas, ds, grads, factor,
+                                              scales, datas_i16, q_rs,
+                                              pa_sss, samps)
+    if f.device.type != "cuda":
+        raise ValueError(
+            f"fused_project_multi_lite: unsupported device {f.device}")
+    d = stack_channels(ds)
+    g = stack_channels(grads)
+    C, H, W = f.shape
+    if not 1 <= C <= MAX_CHANNELS or len(samps) != C or len(pa_sss) != C:
+        raise ValueError("fused_project_multi_lite: channel counts differ")
+    for name, t, dt in (("fdatas", f, torch.float32),
+                        ("ds", d, torch.bfloat16),
+                        ("grads", g, torch.bfloat16)):
+        if (t.device != f.device or t.dtype != dt or not t.is_contiguous()
+                or t.shape != f.shape):
+            raise ValueError(
+                f"fused_project_multi_lite: {name} must be contiguous {dt} "
+                f"{list(f.shape)} on {f.device}, got {t.dtype} "
+                f"{list(t.shape)} on {t.device}")
+    if (scales.device != f.device or scales.dtype != torch.float32
+            or scales.shape != (C,) or not scales.is_contiguous()):
+        raise ValueError(f"fused_project_multi_lite: scales must be float32 "
+                         f"[{C}] on {f.device}")
+    ptrs = (ctypes.c_uint64 * (3 * C))()
+    ints = (ctypes.c_int * (2 * C))()
+    devqs = []
+    nblocks = 0
+    for c, (sy, sx) in enumerate(samps):
+        if H % (8 * sy) or W % (8 * sx) or sy > 4 or sx > 4:
+            raise ValueError(
+                f"fused_project_multi_lite: canvas {H}x{W} is not whole 8x8 "
+                f"blocks at sampling ({sy}, {sx}) (1..4 supported)")
+        hc, wc = H // sy, W // sx
+        for t, dt in ((datas_i16[c], torch.int16), (q_rs[c], torch.float32)):
+            if (t.device != f.device or t.dtype != dt
+                    or not t.is_contiguous() or t.shape != (hc, wc)):
+                raise ValueError(
+                    f"fused_project_multi_lite: channel {c} rasters must be "
+                    f"contiguous int16 / float32 [{hc}, {wc}] on {f.device}")
+        dq = (torch.empty((hc, wc), device=f.device, dtype=torch.bfloat16)
+              if pa_sss[c] != 0.0 else None)
+        devqs.append(dq)
+        ptrs[3 * c:3 * c + 3] = [datas_i16[c].data_ptr(), q_rs[c].data_ptr(),
+                                 0 if dq is None else dq.data_ptr()]
+        ints[2 * c:2 * c + 2] = [sy, sx]
+        nblocks += (hc // 8) * -(-(wc // 8) // 4)
+    fnew = torch.empty_like(f)
+    dnew = torch.empty_like(d)
+    part = torch.empty((nblocks,), device=f.device, dtype=torch.float32)
+    dists = torch.empty((C,), device=f.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    lib, fn = _lite_launcher()
+    err = fn(f.data_ptr(), d.data_ptr(), g.data_ptr(), scales.data_ptr(),
+             fnew.data_ptr(), dnew.data_ptr(), part.data_ptr(),
+             dists.data_ptr(), ptrs, ints, float(factor), C, H, W, stream)
+    _build.check(lib, err, "fused_project_multi_lite")
+    fused_project_multi_lite.launches += 1
+    return fnew, dnew, devqs, dists
+
+
+fused_project_multi_lite.launches = 0

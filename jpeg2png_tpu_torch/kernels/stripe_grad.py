@@ -1,0 +1,227 @@
+"""Lite band gradient (K4): bf16 FISTA difference in, bf16 gradient out.
+
+Replaces the Pallas kernel
+jpeg2png_tpu/kernels/stripe_grad.py::fused_grad_striped_lite
+(`_kernel_lite`).  For a band of L rows of every channel, whose first row
+is global row `row0` of the canvas:
+
+    e      = f + factor * d                 (d = f - fista, bf16)
+    grad   = TV + TGV2 gather of e, zeroed outside the true extent
+             + p_alpha * up(idct(devq))     (devq: bf16 prob carry at
+                                             coefficient resolution)
+    partials: per-channel sum(grad^2) of the f32 gradient, tv, tv2
+    out    grad in bf16 (round to nearest even)
+
+The stencil reaches two rows past the band: they come from halo arrays of
+HALO_ROWS = 2 rows per side (the neighbouring bands' rows; zeros, or
+None, at the canvas edges), not from the TPU's 16-row DMA tiles.  The
+edge masks key on the global row (row0 + band row) and on the true extent,
+static (h_true, w_true) or a [2] int32 device array (`extents`, the
+dynamic-extent mode of bucketed serving).  The two-lite solver tier and
+the dyn2 serving class run it on the whole canvas as one band, row0 = 0,
+halos None.
+
+CUDA version: csrc/stripe_grad.cu.  What bounds it on an H100: memory.
+It reads f (f32), d (bf16) and devq (bf16) and writes the gradient in
+bf16: 10 B per pixel and channel (plus 2 B per prob coefficient) against
+~150 flops per pixel.  What the design does about it: K1's tile (each
+16 x 32 block stages e for all channels with the stencil's 2-pixel halo
+and computes every per-pixel term of the gather once in shared memory),
+with K3's prob expansion (the devq blocks under the tile, transformed in
+shared memory); nothing but the inputs and outputs touches device
+memory.  Partial sums go to one row per block, reduced in a fixed order
+by a second kernel (no float atomics).
+
+On a CPU tensor the wrapper runs the plain PyTorch version below; on a
+CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from jpeg2png_tpu_torch.kernels import _build
+from jpeg2png_tpu_torch.kernels.grad_step import (
+    MAX_CHANNELS, TILE_H, TILE_W, stack_channels, stencil, tgv_alpha)
+from jpeg2png_tpu_torch.ops.dct_raster import idct_raster
+from jpeg2png_tpu_torch.ops.resample import upsample_replicate
+
+HALO_ROWS = 2        # rows of each halo array: the stencil's reach
+LEGAL_SAMPS = (1, 2, 4)
+
+
+def supports(C: int, L: int, W: int, samps) -> bool:
+    """Geometry gate: 1..4 channels, footprints of 1, 2 or 4 pixels per
+    axis, and a band of whole 8x8 coefficient blocks of every channel."""
+    return (1 <= C <= MAX_CHANNELS and len(samps) == C
+            and all(sy in LEGAL_SAMPS and sx in LEGAL_SAMPS
+                    and L % (8 * sy) == 0 and W % (8 * sx) == 0
+                    for sy, sx in samps))
+
+
+def _extent(extents, h_true, w_true):
+    if extents is None:
+        return int(h_true), int(w_true)
+    h, w = (int(v) for v in torch.as_tensor(extents).cpu().tolist())
+    return h, w
+
+
+def fused_grad_striped_lite_plain(fdatas, ds, devqs, halos, factor, row0,
+                                  weight: float, samps, p_alpha_sss,
+                                  h_pad: int, h_true: int, w_true: int,
+                                  extents=None):
+    """Plain PyTorch version of fused_grad_striped_lite (same
+    signature): the stencil of grad_step.py on the band plus its halo
+    rows, with global-row masks."""
+    f = stack_channels(fdatas)
+    d = stack_channels(ds).to(torch.float32)
+    C, L, W = f.shape
+    HT, WT = _extent(extents, h_true, w_true)
+    if halos is None:
+        zf = torch.zeros((C, HALO_ROWS, W), device=f.device)
+        f_top = f_bot = d_top = d_bot = zf
+    else:
+        f_top, f_bot, d_top, d_bot = (
+            stack_channels(h).to(torch.float32) for h in halos)
+    e = (torch.cat([f_top, f, f_bot], dim=1)
+         + float(factor) * torch.cat([d_top, d, d_bot], dim=1))
+    rows = (int(row0) - HALO_ROWS
+            + torch.arange(L + 2 * HALO_ROWS, device=f.device))[:, None]
+    cols = torch.arange(W, device=f.device)[None, :]
+    grad, g_norm, n2 = stencil(e, rows, cols, HT, WT, weight)
+    own = slice(HALO_ROWS, HALO_ROWS + L)
+    grad = torch.where((rows[own] < HT) & (cols < WT), grad[:, own], 0.0)
+    tv = (1.0 / math.sqrt(C)) * torch.sum(g_norm[own])
+    tv2 = (torch.zeros((), device=f.device) if n2 is None
+           else tgv_alpha(C, weight) * torch.sum(n2[own]))
+    it = iter(devqs)
+    for c, (sy, sx) in enumerate(samps):
+        if p_alpha_sss[c] != 0.0:
+            pa = p_alpha_sss[c] / (sy * sx)
+            grad[c] = grad[c] + pa * upsample_replicate(
+                idct_raster(next(it).to(torch.float32)), sy, sx)
+    sumsq = torch.sum(grad * grad, dim=(1, 2))
+    return grad.to(torch.bfloat16), sumsq, tv, tv2
+
+
+_ARGTYPES = (
+    [ctypes.c_void_p] * 8            # f, d, f_top, f_bot, d_top, d_bot, grad, part
+    + [ctypes.c_void_p] * 2          # out, extents (null: static)
+    + [ctypes.POINTER(ctypes.c_uint64),   # per channel devq plane (0: off)
+       ctypes.POINTER(ctypes.c_int),      # per channel sy, sx
+       ctypes.POINTER(ctypes.c_float)]    # per channel p_alpha
+    + [ctypes.c_int] * 6             # C, L, W, row0, h_true, w_true
+    + [ctypes.c_float] * 3           # factor, alpha, alpha2
+    + [ctypes.c_int]                 # tgv
+    + [ctypes.c_void_p]              # stream
+)
+
+
+def _launcher():
+    lib = _build.library("stripe_grad")
+    fn = lib.j2p_fused_grad_lite
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _check(t, name, shape, dtype, device):
+    if (t.device != device or t.dtype != dtype or not t.is_contiguous()
+            or tuple(t.shape) != tuple(shape)):
+        raise ValueError(
+            f"fused_grad_striped_lite: {name} must be contiguous {dtype} "
+            f"{list(shape)} on {device}, got {t.dtype} {list(t.shape)} on "
+            f"{t.device}")
+
+
+def fused_grad_striped_lite(fdatas, ds, devqs, halos, factor, row0,
+                            weight: float, samps, p_alpha_sss,
+                            h_pad: int, h_true: int, w_true: int,
+                            extents=None):
+    """Lite extrapolation + TV/TGV2 gradient of one band (K4).
+
+    Args:
+        fdatas: [C, L, W] float32 band iterates (or per-channel [L, W]).
+        ds: [C, L, W] bfloat16 FISTA differences d = f - fista.
+        devqs: per PROB channel [L/sy, W/sx] bfloat16 (clamp - dq)/q^2
+            carries of the previous projection.
+        halos: (f_tops, f_bots, d_tops, d_bots), each [C, HALO_ROWS, W]
+            (f float32, d bfloat16): the rows just above and below the
+            band; None for zeros (a band that is the whole canvas).
+        factor: host float FISTA extrapolation factor.
+        row0: global canvas row of the band's first row.
+        weight: TGV2 weight.  samps: per channel (sy, sx).
+        p_alpha_sss: per channel host float p_alpha * sy * sx (0: off).
+        h_pad: canvas height the band belongs to (row0 + L <= h_pad).
+        h_true, w_true: the true extent (ignored with `extents`).
+        extents: None, or a [2] int32 tensor (h_true, w_true) on the
+            band's device (dynamic-extent bucket mode).
+    Returns:
+        (grads [C, L, W] bfloat16, sumsq [C], tv, tv2): the band's own
+        partial sums (sumsq from the float32 gradient).
+    """
+    f = stack_channels(fdatas)
+    if f.device.type == "cpu":
+        return fused_grad_striped_lite_plain(
+            fdatas, ds, devqs, halos, factor, row0, weight, samps,
+            p_alpha_sss, h_pad, h_true, w_true, extents)
+    if f.device.type != "cuda":
+        raise ValueError(
+            f"fused_grad_striped_lite: unsupported device {f.device}")
+    dev = f.device
+    d = stack_channels(ds)
+    C, L, W = f.shape
+    if (len(p_alpha_sss) != C or not supports(C, L, W, samps)
+            or not 0 <= int(row0) <= int(h_pad) - L):
+        raise ValueError(
+            f"fused_grad_striped_lite: band {C}x{L}x{W} at row {row0} of "
+            f"{h_pad}, samps={samps} is outside the kernel's gate")
+    _check(f, "fdatas", (C, L, W), torch.float32, dev)
+    _check(d, "ds", (C, L, W), torch.bfloat16, dev)
+    halo_ptrs = [None] * 4
+    if halos is not None:
+        for j, (h, dt) in enumerate(zip(halos, (torch.float32,) * 2
+                                        + (torch.bfloat16,) * 2)):
+            h = stack_channels(h)
+            _check(h, "halos", (C, HALO_ROWS, W), dt, dev)
+            halo_ptrs[j] = h.data_ptr()
+    if extents is None:
+        ext_ptr = None
+        HT, WT = int(h_true), int(w_true)
+        if not (1 <= HT <= h_pad and 1 <= WT <= W):
+            raise ValueError(f"fused_grad_striped_lite: true extent {HT}x"
+                             f"{WT} outside the {h_pad}x{W} canvas")
+    else:
+        _check(extents, "extents", (2,), torch.int32, dev)
+        ext_ptr, HT, WT = extents.data_ptr(), 0, 0
+    ptrs = (ctypes.c_uint64 * C)()
+    ints = (ctypes.c_int * (2 * C))()
+    pas = (ctypes.c_float * C)()
+    it = iter(devqs)
+    for c, (sy, sx) in enumerate(samps):
+        ints[2 * c:2 * c + 2] = [sy, sx]
+        if p_alpha_sss[c] != 0.0:
+            dq = next(it)
+            _check(dq, f"devqs[{c}]", (L // sy, W // sx), torch.bfloat16, dev)
+            ptrs[c] = dq.data_ptr()
+            pas[c] = p_alpha_sss[c] / (sy * sx)
+    nblocks = -(-L // TILE_H) * -(-W // TILE_W)
+    grad = torch.empty((C, L, W), device=dev, dtype=torch.bfloat16)
+    part = torch.empty((nblocks, C + 2), device=dev, dtype=torch.float32)
+    out = torch.empty((C + 2,), device=dev, dtype=torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib, fn = _launcher()
+    err = fn(f.data_ptr(), d.data_ptr(), *halo_ptrs, grad.data_ptr(),
+             part.data_ptr(), out.data_ptr(), ext_ptr, ptrs, ints, pas,
+             C, L, W, int(row0), HT, WT, float(factor), 1.0 / math.sqrt(C),
+             tgv_alpha(C, weight), int(weight != 0.0), stream)
+    _build.check(lib, err, "fused_grad_striped_lite")
+    fused_grad_striped_lite.launches += 1
+    return grad, out[:C], out[C], out[C + 1]
+
+
+fused_grad_striped_lite.launches = 0

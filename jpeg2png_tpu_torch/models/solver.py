@@ -1,8 +1,8 @@
 """FISTA-accelerated projected subgradient solver.
 
-The iterate loop of the reference (compute.c:406-465) in one of two
+The iterate loop of the reference (compute.c:406-465) in one of four
 tiers, the counterparts of the JAX package's (jpeg2png_tpu/models/
-solver.py:329-468):
+solver.py:329-524, 766-804):
 
   "two"  a host loop of two fused kernels per iteration:
      K1 kernels/grad_step.py::fused_grad            FISTA extrapolation,
@@ -11,11 +11,21 @@ solver.py:329-468):
         projection in the sampled DCT domain, next prob gradient, distance;
   "mega" one launch of K3 kernels/iter_step.py::fused_solve per chunk of
      iterations (the same arithmetic, with the prob term carried at
-     coefficient resolution as devq = (clamp - dq) / q^2).
+     coefficient resolution as devq = (clamp - dq) / q^2);
+  "two-lite"  a host loop of the lite pair per iteration, on bf16 side
+     state (the FISTA difference d = f - fista, the gradient, devq; the
+     iterate stays f32) and boxes built in-kernel from int16 + quant:
+     K4 kernels/stripe_grad.py::fused_grad_striped_lite (the whole canvas
+        as one band), K5 kernels/project_step.py::fused_project_multi_lite;
+  "mega-lite" one launch of K3 in lite mode (iter_step.fused_solve_lite)
+     per chunk: the same state and arithmetic as two-lite.
 
-active_tier picks one by geometry (the same on the CPU, where both run
-the kernels' plain PyTorch versions); `tier=` forces one.  The canvas is
-exactly canvas_shape (no lane padding).  Channels whose region is smaller than
+tier_rule picks one by canvas size, in the JAX package's order mega ->
+mega-lite -> two-lite -> two, with thresholds from the card's tier sweep
+(the same on the CPU, where every tier runs the kernels' plain PyTorch
+versions); `tier=` forces one.  The canvas is exactly canvas_shape (no
+lane or band padding: the port's kernels take any canvas of whole 8x8
+coefficient blocks).  Channels whose region is smaller than
 the canvas project on unconstrained boxes (lo = -2^39, hi = +2^39,
 dq = iq = 0) outside their region, so those pixels evolve freely like
 the reference's loop bounds (compute.c:349-403).
@@ -51,11 +61,12 @@ import numpy as np
 import torch
 
 from jpeg2png_tpu_torch import resolve_device
-from jpeg2png_tpu_torch.kernels import iter_step
+from jpeg2png_tpu_torch.kernels import iter_step, stripe_grad
 from jpeg2png_tpu_torch.kernels.grad_step import fused_grad, stack_channels
-from jpeg2png_tpu_torch.kernels.iter_step import fused_solve
+from jpeg2png_tpu_torch.kernels.iter_step import fused_solve, fused_solve_lite
 from jpeg2png_tpu_torch.kernels.project_step import (
-    FREE_Q, GAP_BOX, fused_project_multi)
+    FREE_Q, GAP_BOX, fused_project_multi, fused_project_multi_lite)
+from jpeg2png_tpu_torch.kernels.stripe_grad import fused_grad_striped_lite
 from jpeg2png_tpu_torch.ops.blocks import deblockify
 from jpeg2png_tpu_torch.ops.dct_raster import idct_raster
 from jpeg2png_tpu_torch.ops.resample import (
@@ -96,35 +107,54 @@ def canvas_shape(geoms: Sequence[ChannelGeometry]) -> Tuple[int, int]:
     return (max(g.region_h for g in geoms), max(g.region_w for g in geoms))
 
 
-# Largest canvas (pixels) the mega tier takes.  Set from K3 against
-# K1 + K2 per iteration on an H100 (chip_smoke.py phase 6, PERF.md):
-# the mega tier was faster at 0.26 MP (0.14 vs 0.38 ms) and 1.23 MP (0.33
-# vs 0.31-0.53 ms, the two-kernel tier being host-bound there) and slower
-# at 3.15 MP (0.52 vs 0.38 ms) and 6.29 MP (0.94 vs 0.63 ms); the
-# threshold is the last measured size where it won, rounded to 1280x1024.
+TIERS = ("mega", "mega-lite", "two-lite", "two")
+
+# The tier gates: the largest canvas (pixels) each tier takes, tried in
+# the order mega -> mega-lite -> two-lite, else two.  Set from the card's
+# tier sweep (chip_smoke.py phase 6: 50-iteration solves of 0.26, 1.23,
+# 3.15, 6.29 and 8.0 MP photos through every tier on an H100, three
+# calls; PERF.md).  A lite tier takes a size only where it beats every
+# f32 tier by at least LITE_MIN_GAIN in every call: its bf16 side state
+# costs 0.05-0.9 dB of agreement with the reference's goldens.  None
+# did: mega-lite took 0.96-1.11x mega's time; two-lite beat the f32
+# tiers by 13% at 3.15 MP in one call and took 1.20-1.23x the two tier's
+# time in the other two (the two tier's host floor there moves 0.37-0.55
+# ms per iteration between calls), and 1.19-1.27x at 6.29 and 8.0 MP (K4
+# runs at 8.7x its bytes bound).  So both lite gates are closed (0); the
+# mega gate is the last size where mega won, rounded to 1280x1024.
+LITE_MIN_GAIN = 0.10
 MEGA_MAX_PIXELS = 1280 * 1024
+MEGA_LITE_MAX_PIXELS = 0
+TWO_LITE_MAX_PIXELS = 0
 
 
-def mega_gate(nchannel: int, H: int, W: int, samps, n_prob: int) -> bool:
-    """Whether K3 takes an [H, W] canvas: the whole-solve kernel's gate
-    holds and the canvas is at most MEGA_MAX_PIXELS.  The one rule for
-    both the single-image tier (active_tier) and the serving runner's
-    buckets (runner.plan_buckets)."""
-    return (H * W <= MEGA_MAX_PIXELS
-            and iter_step.supports(nchannel, H, W, samps, n_prob))
+def tier_rule(nchannel: int, H: int, W: int, samps, n_prob: int) -> str:
+    """The tier that solves an [H, W] canvas: the first of mega ->
+    mega-lite -> two-lite whose size gate and kernel geometry gate hold,
+    else two.  The one rule for the single-image tier (active_tier) and
+    the serving runner's buckets (runner.plan_buckets)."""
+    px = H * W
+    whole = iter_step.supports(nchannel, H, W, samps, n_prob)
+    if whole and px <= MEGA_MAX_PIXELS:
+        return "mega"
+    if whole and px <= MEGA_LITE_MAX_PIXELS:
+        return "mega-lite"
+    if px <= TWO_LITE_MAX_PIXELS and stripe_grad.supports(nchannel, H, W,
+                                                          samps):
+        return "two-lite"
+    return "two"
 
 
 def active_tier(geoms: Sequence[ChannelGeometry],
                 pweights: Sequence[float] | None = None) -> str:
-    """The tier a solve of this geometry takes: "mega" (K3) where
-    mega_gate holds for its canvas, else "two" (K1 + K2).  `pweights`
-    gives the prob channels (None: all on, the CLI default); the tier
-    fixes the carry's format."""
+    """The tier a solve of this geometry takes: tier_rule on its canvas.
+    `pweights` gives the prob channels (None: all on, the CLI default);
+    the tier fixes the carry's format."""
     H, W = canvas_shape(geoms)
     n_prob = (len(geoms) if pweights is None
               else sum(1 for p in pweights if p != 0.0))
     samps = [(g.h_samp, g.w_samp) for g in geoms]
-    return "mega" if mega_gate(len(geoms), H, W, samps, n_prob) else "two"
+    return tier_rule(len(geoms), H, W, samps, n_prob)
 
 
 def objective_alphas(
@@ -272,26 +302,56 @@ def _initial_carry(prob: _Problem, tier: str):
 
     "two":  (fdatas, fistas, pgrads [P, H, W], prob_dist, t);
     "mega": (fdatas, fistas, devqs tuple of [H/sy, W/sx] per prob
-            channel, prob_dist, t) — the JAX mega carry (solver.py:563-570).
+            channel, prob_dist, t) — the JAX mega carry (solver.py:563-570);
+    "two-lite", "mega-lite": (fdatas f32, ds = fdatas - fistas bf16,
+            devqs tuple bf16, prob_dist, t) — the JAX two-lite carry
+            (solver.py:478-480), one format for both lite tiers.
     """
-    if tier == "mega":
-        devqs = tuple(torch.zeros_like(q) for q, pa in
+    fmt = _CARRY_FORMAT[tier]
+    side = torch.bfloat16 if fmt == "lite" else torch.float32
+    if fmt != "two":
+        devqs = tuple(torch.zeros_like(q, dtype=side) for q, pa in
                       zip(prob.qs_c, prob.p_alphas) if pa != 0.0)
-        return (prob.f0, prob.f0, devqs, 0.0, 1.0)
+        fista = (torch.zeros_like(prob.f0, dtype=side) if fmt == "lite"
+                 else prob.f0)
+        return (prob.f0, fista, devqs, 0.0, 1.0)
     n_prob = sum(1 for pa in prob.p_alphas if pa != 0.0)
     pg0 = torch.zeros((n_prob, prob.H, prob.W), device=prob.f0.device)
     return (prob.f0, prob.f0, pg0, 0.0, 1.0)
 
 
-def _carry_tier(carry) -> str:
-    return "mega" if isinstance(carry[2], tuple) else "two"
+# the carry format of each tier: the lite tiers share one state
+_CARRY_FORMAT = {"two": "two", "mega": "mega", "two-lite": "lite",
+                 "mega-lite": "lite"}
 
 
-def _run(prob: _Problem, carry, nsteps: int):
-    """nsteps iterations from `carry` (either tier's format) ->
+def _carry_format(carry) -> str:
+    if not isinstance(carry[2], tuple):
+        return "two"
+    return "lite" if carry[1].dtype == torch.bfloat16 else "mega"
+
+
+def _metrics(prob: _Problem, rows, prob_dist):
+    """Metric rows from per-iteration [sumsq C, tv, tv2, dists C] rows
+    (the two-kernel tiers' layout), fetched once -> (metrics, the final
+    prob_dist)."""
+    partials = torch.stack(rows).cpu().numpy()
+    C = len(prob.geoms)
+    cols = list(range(C + 2)) + [C + 2 + c for c in range(C)
+                                 if prob.p_alphas[c] != 0.0]
+    metrics, dist_final = mega_metrics(
+        partials[:, cols], prob_dist, prob.p_alphas, prob.total_alpha,
+        prob.simd_compat_logging)
+    return metrics, float(dist_final)
+
+
+def _run(prob: _Problem, carry, nsteps: int, tier: str):
+    """nsteps iterations of `tier` from `carry` (that tier's format) ->
     (carry, metrics [nsteps, 4])."""
-    if _carry_tier(carry) == "mega":
-        return _run_mega(prob, carry, nsteps)
+    if tier in ("mega", "mega-lite"):
+        return _run_mega(prob, carry, nsteps, tier == "mega-lite")
+    if tier == "two-lite":
+        return _run_two_lite(prob, carry, nsteps)
     fdatas, fistas, pgrads, prob_dist, t = carry
     factors, t_final = iter_step.fista_factors(t, nsteps)
     prob_mask = [pa != 0.0 for pa in prob.p_alphas]
@@ -317,81 +377,130 @@ def _run(prob: _Problem, carry, nsteps: int):
     if not rows:
         return carry, np.zeros((0, 4), np.float32)
     # the chunk's one device -> host fetch
-    partials = torch.stack(rows).cpu().numpy()
-    C = len(prob.geoms)
-    cols = list(range(C + 2)) + [C + 2 + c for c in range(C) if prob_mask[c]]
-    metrics, dist_final = mega_metrics(
-        partials[:, cols], prob_dist, prob.p_alphas, prob.total_alpha,
-        prob.simd_compat_logging)
-    return (fdatas, fistas, pgrads, float(dist_final), t_final), metrics
+    metrics, dist_final = _metrics(prob, rows, prob_dist)
+    return (fdatas, fistas, pgrads, dist_final, t_final), metrics
 
 
-def _run_mega(prob: _Problem, carry, nsteps: int):
-    """The mega tier: all nsteps iterations in one K3 launch."""
-    fdatas, fistas, devqs, prob_dist, t = carry
+def _run_two_lite(prob: _Problem, carry, nsteps: int):
+    """The two-lite tier: K4 on the whole canvas as one band (row0 0, no
+    halos, the canvas its own true extent), then K5, per iteration."""
+    fdatas, ds, devqs, prob_dist, t = carry
     if nsteps == 0:
         return carry, np.zeros((0, 4), np.float32)
     factors, t_final = iter_step.fista_factors(t, nsteps)
-    fdatas, fistas, devqs, partials = fused_solve(
-        fdatas, fistas, list(devqs), factors, prob.step_size, prob.dats_c,
+    devqs = list(devqs)
+    rows = []
+    for i in range(nsteps):
+        factor = float(factors[i])
+        grads, sumsq, tv, tv2 = fused_grad_striped_lite(
+            fdatas, ds, devqs, None, factor, 0, prob.weight, prob.samps,
+            prob.pa_sss, prob.H, prob.H, prob.W)
+        norms = torch.sqrt(sumsq)
+        scale = torch.where(norms == 0.0, 0.0, prob.step_size / norms)
+        fdatas, ds, dq_out, dists = fused_project_multi_lite(
+            fdatas, ds, grads, factor, scale, prob.dats_c, prob.qs_c,
+            prob.pa_sss, prob.samps)
+        devqs = [d for d in dq_out if d is not None]
+        rows.append(torch.cat([sumsq, tv.reshape(1), tv2.reshape(1), dists]))
+    metrics, dist_final = _metrics(prob, rows, prob_dist)
+    return (fdatas, ds, tuple(devqs), dist_final, t_final), metrics
+
+
+def _run_mega(prob: _Problem, carry, nsteps: int, lite: bool):
+    """The mega tiers: all nsteps iterations in one K3 launch (lite: on
+    the lite carry, K3's lite mode)."""
+    fdatas, side, devqs, prob_dist, t = carry
+    if nsteps == 0:
+        return carry, np.zeros((0, 4), np.float32)
+    factors, t_final = iter_step.fista_factors(t, nsteps)
+    solve = fused_solve_lite if lite else fused_solve
+    fdatas, side, devqs, partials = solve(
+        fdatas, side, list(devqs), factors, prob.step_size, prob.dats_c,
         prob.qs_c, prob.pa_sss, prob.samps, prob.weight)
     # the chunk's one device -> host fetch
     metrics, dist_final = mega_metrics(
         partials.cpu().numpy(), prob_dist, prob.p_alphas, prob.total_alpha,
         prob.simd_compat_logging)
-    return (fdatas, fistas, tuple(devqs), float(dist_final),
+    return (fdatas, side, tuple(devqs), float(dist_final),
             t_final), metrics
 
 
 def _resolve_tier(prob: _Problem, tier, pweights) -> str:
     if tier is None:
         return active_tier(prob.geoms, pweights)
-    if tier not in ("mega", "two"):
-        raise ValueError(f"unknown solver tier {tier!r}")
-    if tier == "mega" and not iter_step.supports(
-            len(prob.geoms), prob.H, prob.W, prob.samps,
-            sum(1 for p in pweights if p != 0.0)):
-        raise ValueError(f"the mega tier does not take geometry "
+    if tier not in TIERS:
+        raise ValueError(f"unknown solver tier {tier!r} (one of {TIERS})")
+    C = len(prob.geoms)
+    ok = {"mega": iter_step.supports(C, prob.H, prob.W, prob.samps,
+                                     sum(1 for p in pweights if p != 0.0)),
+          "two-lite": stripe_grad.supports(C, prob.H, prob.W, prob.samps)}
+    ok["mega-lite"] = ok["mega"]
+    if not ok.get(tier, True):
+        raise ValueError(f"the {tier} tier does not take geometry "
                          f"{prob.H}x{prob.W} samps={prob.samps}")
     return tier
 
 
 def carry_from_numpy(carry, datas, quants, samps, weight, pweights,
                      simd_compat_logging: bool = True, device="cuda",
-                     tier=None):
+                     tier=None, source=None):
     """A JAX package carry -> this solver's carry for `tier` (default:
     active_tier of the geometry).
 
-    carry, as numpy arrays, is either
-      * the XLA-tier carry (fdata [C,H,W], fista [C,H,W], cos tuple of
-        per-channel clamped coefficient rasters, t) from
+    carry, as numpy arrays, is one of (`source` names it; None infers it
+    from the carry's length and the dtype of its second entry)
+      * "xla": the XLA-tier carry (fdata [C,H,W], fista [C,H,W], cos
+        tuple of per-channel clamped coefficient rasters, t) from
         jpeg2png_tpu.models.solver._build_solver_impl(..., use_pallas=
-        False), or
-      * the mega-tier carry (fdata tuple, fista tuple, devq tuple per
-        prob channel [H/sy, W/sx], prob_dist, t) from its fused solve.
+        False);
+      * "mega": the mega-tier carry (fdata tuple, fista tuple, devq tuple
+        per prob channel [H/sy, W/sx], prob_dist, t) from its fused
+        solve — also the mega-lite tier's, which keeps K3's f32
+        interface (jpeg2png_tpu/kernels/iter_step.py:758-761);
+      * "two-lite": the two-lite carry (fdata tuple, d = fdata - fista
+        tuple, devq tuple, prob_dist, t; d and devq bfloat16, which
+        numpy holds as ml_dtypes.bfloat16, or float32 if the caller cast
+        them), on the JAX tier's padded [H2, W2] canvas: the padding is
+        frozen at 0 and cropped here.
     The prob state becomes devq = (cos - dq) / q^2 on the canvas
-    coefficient grid (mega) or the pixel gradient p_alpha * up(idct(devq))
-    (two), with the distance the JAX body computes at its next step
-    (jpeg2png_tpu/models/solver.py:263).  `weight` is accepted for
-    signature parity; the carry does not depend on it.
+    coefficient grid (mega, lite: rounded to bf16) or the pixel gradient
+    p_alpha * up(idct(devq)) (two), with the distance the JAX body
+    computes at its next step (jpeg2png_tpu/models/solver.py:263).
+    `weight` is accepted for signature parity; the carry does not depend
+    on it.
     """
     del weight
     device = resolve_device(device)
     prob = _build_problem(datas, quants, samps, 0.0, pweights, 0,
                           simd_compat_logging, device)
     tier = _resolve_tier(prob, tier, pweights)
+    if source is None:
+        source = ("xla" if len(carry) == 4 else
+                  "two-lite" if np.asarray(carry[1][0]).dtype.name
+                  == "bfloat16" else "mega")
 
-    def tensor(x):
-        return torch.as_tensor(np.array(x, np.float32), device=device)
+    def tensor(x, rows=None, cols=None):
+        return torch.as_tensor(np.array(x, np.float32)[:rows, :cols],
+                               device=device)
 
     prob_cs = [c for c, pa in enumerate(prob.p_alphas) if pa != 0.0]
-    if len(carry) == 5:
+    lite_d = None
+    if source == "two-lite":
+        fdata, ds, devqs_j, dist, t = carry
+        fdata = torch.stack([tensor(x, prob.H, prob.W) for x in fdata])
+        lite_d = torch.stack([tensor(x, prob.H, prob.W) for x in ds])
+        fista = fdata - lite_d
+        devqs = [tensor(d, prob.H // prob.samps[c][0],
+                        prob.W // prob.samps[c][1])
+                 for d, c in zip(devqs_j, prob_cs)]
+        dist = float(dist)
+    elif source == "mega":
         fdata, fista, devqs_j, dist, t = carry
         fdata = torch.stack([tensor(x) for x in fdata])
         fista = torch.stack([tensor(x) for x in fista])
         devqs = [tensor(d) for d in devqs_j]
         dist = float(dist)
-    else:
+    elif source == "xla":
         fdata, fista, cos, t = carry
         fdata, fista = tensor(fdata), tensor(fista)
         devqs = []
@@ -404,8 +513,14 @@ def carry_from_numpy(carry, datas, quants, samps, weight, pweights,
             pad = (0, prob.W // g.w_samp - g.pw, 0, prob.H // g.h_samp - g.ph)
             devqs.append(torch.nn.functional.pad(scaled * prob.inv_qs[c], pad))
         dist = float(dist)
+    else:
+        raise ValueError(f"unknown carry source {source!r}")
     if tier == "mega":
         return (fdata, fista, tuple(devqs), dist, float(t))
+    if _CARRY_FORMAT[tier] == "lite":
+        d = (lite_d if lite_d is not None else fdata - fista)
+        return (fdata, d.to(torch.bfloat16),
+                tuple(x.to(torch.bfloat16) for x in devqs), dist, float(t))
     pgrads = [prob.p_alphas[c] * upsample_replicate(
         idct_raster(d), *prob.samps[c]) for c, d in zip(prob_cs, devqs)]
     pg = (torch.stack(pgrads) if pgrads
@@ -420,7 +535,8 @@ def solve_steps(datas, quants, samps, weight, pweights, iterations,
     iterations from `carry` (None: the plain decode).  `iterations` is
     the TOTAL planned count and fixes the step size
     radius/sqrt(1+iterations) (compute.c:443) however the run is split.
-    `tier` (default active_tier) must match the carry's format.
+    `tier` (default active_tier) must match the carry's format (the two
+    lite tiers share theirs, so either resumes the other's carry).
 
     Returns (fdata [C, H, W] tensor, metrics [nsteps, 4] numpy, carry).
     """
@@ -430,11 +546,11 @@ def solve_steps(datas, quants, samps, weight, pweights, iterations,
     tier = _resolve_tier(prob, tier, pweights)
     if carry is None:
         carry = _initial_carry(prob, tier)
-    elif _carry_tier(carry) != tier:
-        raise ValueError(f"a {_carry_tier(carry)!r}-tier carry cannot "
+    elif _carry_format(carry) != _CARRY_FORMAT[tier]:
+        raise ValueError(f"a {_carry_format(carry)!r}-format carry cannot "
                          f"resume a {tier!r}-tier solve")
     carry, metrics = _run(prob, carry, iterations if nsteps is None
-                          else nsteps)
+                          else nsteps, tier)
     return carry[0], metrics, carry
 
 
@@ -457,7 +573,7 @@ def solve_joint(
         samps: per channel (h_samp, w_samp) replication factors.
         device: "cuda" (default; raises RuntimeError without a card) or
             "cpu" for the plain PyTorch versions of the kernels.
-        tier: None (active_tier), "mega" or "two".
+        tier: None (active_tier) or one of TIERS.
     Returns:
         (fdata [C, H, W] tensor on `device`, metrics [iterations, 4]
         numpy) where metrics columns are (objective, prob_dist, tv, tv2)
@@ -488,12 +604,13 @@ def solve_joint_chunked(
         chunk = max(8, min(50, iterations // 20 or iterations))
     prob = _build_problem(datas, quants, samps, weight, pweights,
                           iterations, simd_compat_logging, device)
-    carry = _initial_carry(prob, _resolve_tier(prob, tier, pweights))
+    tier = _resolve_tier(prob, tier, pweights)
+    carry = _initial_carry(prob, tier)
     all_metrics = []
     done = 0
     while done < iterations:
         n = min(chunk, iterations - done)
-        carry, metrics = _run(prob, carry, n)
+        carry, metrics = _run(prob, carry, n, tier)
         done += n
         all_metrics.append(metrics)
         if on_chunk is not None:

@@ -45,7 +45,7 @@ def _pack(channels, img: JpegImage, bits: int) -> np.ndarray:
 def smooth_decode(img: JpegImage, cfg: SolverConfig,
                   progress: Optional[ProgressBar] = None,
                   bits: int = 8, metrics_stream=None,
-                  device="cuda") -> DecodeResult:
+                  device="cuda", tier=None) -> DecodeResult:
     """Solve and convert one parsed JPEG to output pixels.
 
     metrics_stream: optional callable (channel, start_iteration,
@@ -53,7 +53,8 @@ def smooth_decode(img: JpegImage, cfg: SolverConfig,
     active, solves run as resumable chunks so the bar ticks and the CSV
     streams mid-solve, like the reference's per-iteration hooks
     (compute.c:449-452, logger.c:20).  Chunked and one-shot solves run
-    the same kernels on the same carry and agree exactly.
+    the same kernels on the same carry and agree exactly.  `tier` forces
+    a solver tier (models/solver.py TIERS; None: tier_rule).
     """
     require_supported(img)
     if cfg.dtype != "float32":
@@ -69,7 +70,7 @@ def smooth_decode(img: JpegImage, cfg: SolverConfig,
     def solve(ds, qs, ss, w, pw, iters, channel_id):
         if not (live and iters > 0):
             fd, metrics = solve_joint(ds, qs, ss, w, pw, iters,
-                                      cfg.simd_compat_logging, device)
+                                      cfg.simd_compat_logging, device, tier)
             if progress:
                 progress.increment(iters)
             if metrics_stream:
@@ -88,7 +89,8 @@ def smooth_decode(img: JpegImage, cfg: SolverConfig,
         return solve_joint_chunked(
             ds, qs, ss, w, pw, iters, on_chunk=on_chunk,
             chunk=1 if iters <= 16 else None,
-            simd_compat_logging=cfg.simd_compat_logging, device=device)
+            simd_compat_logging=cfg.simd_compat_logging, device=device,
+            tier=tier)
 
     metrics_out = {}
     if not cfg.separate_components or C == 1:
@@ -117,6 +119,7 @@ def decode_file(
     logger: Optional[ConvergenceLogger] = None,
     progress: Optional[ProgressBar] = None,
     device="cuda",
+    tier=None,
 ) -> DecodeResult:
     """Full per-file pipeline (jpeg2png.c:120-172).  CSV rows stream
     DURING the solve (chunked execution), like the reference's in-loop
@@ -128,7 +131,7 @@ def decode_file(
             logger.log_metrics(infile, channel, metrics,
                                start_iteration=start)
     result = smooth_decode(img, cfg, progress, bits, metrics_stream=stream,
-                           device=device)
+                           device=device, tier=tier)
     write_png(outfile, result.pixels, bits)
     return result
 

@@ -1,26 +1,31 @@
 """Batched multi-image decoding: bucketed serving through the whole-solve
-kernel.
+kernel and the lite pair.
 
 The reference parallelizes over input files with OpenMP threads
-(jpeg2png.c:330-337); the port batches images through one launch of K3
-(kernels/iter_step.py) in dynamic-extent mode, like the JAX package's
-runner (jpeg2png_tpu/runner.py:154-432, 947-1126):
+(jpeg2png.c:330-337); the port batches images like the JAX package's
+runner (jpeg2png_tpu/runner.py:154-432, 778-942, 947-1126):
 
   * images are read on the host by a thread pool,
   * grouped into buckets by subsampling and a coarsened canvas shape:
     every member is zero-padded into the bucket canvas and carries its
-    true extent and step size as device values, so one launch solves up
-    to 8 images of different sizes (one bucket chunk),
+    true extent and step size as device values,
   * the initial decode, the FREE/FROZEN quant rasters, the crop and the
     colour conversion run on the device; each image's pixels are fetched
     once.
 
-Images whose bucket the mega tier's gate refuses (solver.mega_gate: the
-kernel's geometry gate, or a canvas above solver.MEGA_MAX_PIXELS, where
-the two-kernel tier was measured faster on the card) form the "exact"
-class and are solved one at a time on the two-kernel tier.  There is
-one CUDA device per process in this slice (dp_degree counts them for
-later slices).
+solver.tier_rule, the single-image tier rule applied to the bucket
+canvas, sorts each image into one of three classes:
+
+  "dyn"    the bucket's tier is mega or mega-lite: up to 8 images of
+           different sizes per launch of K3 (kernels/iter_step.py) in
+           dynamic-extent mode, f32 or lite (solve_bucket);
+  "dyn2"   its two-lite bucket's tier is two-lite: one image at a time
+           through K4 + K5 per iteration in dynamic-extent mode, on the
+           shared bucket canvas (two_lite_bucket_for, solve_bucket_two);
+  "exact"  the rest: one image at a time on the two-kernel tier.
+
+There is one CUDA device per process in this slice (dp_degree counts
+them for later slices).
 """
 
 from __future__ import annotations
@@ -37,12 +42,14 @@ import torch
 
 from jpeg2png_tpu_torch import resolve_device
 from jpeg2png_tpu_torch.io import JpegImage, read_jpeg, require_supported
-from jpeg2png_tpu_torch.kernels import iter_step
-from jpeg2png_tpu_torch.kernels.iter_step import fused_solve
-from jpeg2png_tpu_torch.kernels.project_step import FREE_Q
+from jpeg2png_tpu_torch.kernels import iter_step, stripe_grad
+from jpeg2png_tpu_torch.kernels.iter_step import fused_solve, fused_solve_lite
+from jpeg2png_tpu_torch.kernels.project_step import (
+    FREE_Q, fused_project_multi_lite)
+from jpeg2png_tpu_torch.kernels.stripe_grad import fused_grad_striped_lite
 from jpeg2png_tpu_torch.models.solver import (
-    ChannelGeometry, canvas_shape, mega_gate, mega_metrics,
-    objective_alphas, solve_joint)
+    ChannelGeometry, canvas_shape, mega_metrics, objective_alphas,
+    solve_joint, tier_rule)
 from jpeg2png_tpu_torch.ops.color import gray_packed, ycbcr_to_rgb_packed
 from jpeg2png_tpu_torch.ops.dct_raster import idct_raster
 from jpeg2png_tpu_torch.utils.config import SolverConfig
@@ -117,6 +124,24 @@ def quantized_bucket_for(img: JpegImage) -> Tuple[int, int]:
     if coarse[0] * coarse[1] <= _MAX_WASTE * natural[0] * natural[1]:
         return coarse
     return natural
+
+
+def two_lite_bucket_for(img: JpegImage) -> Optional[Tuple[int, int]]:
+    """The dyn2 (two-lite, dynamic-extent) bucket of an image, or None
+    when the lite pair cannot take it (jpeg2png_tpu/runner.py:778 of the
+    JAX package): the ladder-coarsened shape when it wastes at most 1.8x
+    the natural bucket's area, else the natural bucket, which must stay
+    within 2x the true canvas.  The port's kernels need no lane or band
+    padding, so the natural bucket is the canvas in whole 8x8 blocks of
+    every channel, and the lite pair's gate does not depend on the prob
+    channels."""
+    H, W = _canvas(img)
+    samps = _samps(img)
+    natural = _align(H, W, samps)
+    if (natural[0] * natural[1] > 2 * H * W
+            or not stripe_grad.supports(len(samps), *natural, samps)):
+        return None
+    return quantized_bucket_for(img)
 
 
 def _stage_image_host(planes, HB: int, WB: int):
@@ -253,7 +278,9 @@ def solve_bucket(
     device="cuda",
 ) -> BatchResult:
     """Solve mixed-size same-subsampling images through K3 in
-    dynamic-extent mode.
+    dynamic-extent mode: f32, or its lite mode on the lite state (bf16
+    FISTA difference and devq) where solver.tier_rule sends the bucket
+    canvas to the mega-lite tier.
 
     Every image is padded into the `bucket` canvas; its true extent and
     step size (radius of its own canvas / sqrt(1 + iterations),
@@ -279,6 +306,9 @@ def solve_bucket(
     if not iter_step.supports(C, HB, WB, samps, P):
         raise ValueError(f"bucket {HB}x{WB} samps={samps} is outside the "
                          "whole-solve kernel's gate")
+    lite = tier_rule(C, HB, WB, samps, P) == "mega-lite"
+    side = torch.bfloat16 if lite else torch.float32
+    solve = fused_solve_lite if lite else fused_solve
     staged, exts, steps = _stage_images(images, bucket, iterations)
 
     B = len(images)
@@ -293,14 +323,15 @@ def solve_bucket(
         f, dats, q_rs, ext, step = _upload_chunk(
             [staged[m] for m in members], [exts[m] for m in members],
             [steps[m] for m in members], samps, bucket, device)
-        fi = f
-        devqs = [torch.zeros_like(q_rs[c]) for c in range(C)
+        # the FISTA shadow: fista = f, or the lite difference d = 0
+        fi = torch.zeros_like(f, dtype=side) if lite else f
+        devqs = [torch.zeros_like(q_rs[c], dtype=side) for c in range(C)
                  if pa_ss[c] != 0.0]
         prob_prev = np.zeros((len(members),), np.float32)
         done = 0
         while done < iterations:
             n = min(iter_chunk, iterations - done)
-            f, fi, devqs, partials = fused_solve(
+            f, fi, devqs, partials = solve(
                 f, fi, devqs, factors_np[done:done + n], step, dats, q_rs,
                 pa_ss, samps, weight, extents=ext)
             partials_np = partials.cpu().numpy()
@@ -317,6 +348,87 @@ def solve_bucket(
             finish(members, f)
         else:
             fdata_out.append(f)
+    if finish is not None:
+        return BatchResult(None, metrics_out)
+    return BatchResult(torch.cat(fdata_out), metrics_out)
+
+
+def solve_bucket_two(
+    images: Sequence[JpegImage],
+    bucket: Tuple[int, int],
+    weight: float,
+    pweights: Sequence[float],
+    iterations: int,
+    simd_compat_logging: bool = True,
+    on_chunk=None,
+    iter_chunk: Optional[int] = None,
+    finish=None,
+    device="cuda",
+) -> BatchResult:
+    """solve_bucket for the dyn2 class (jpeg2png_tpu/runner.py:826 of the
+    JAX package): images of one two-lite bucket, one at a time on one
+    device, each padded into the bucket canvas with its true extent and
+    step size as device values, through K4 + K5 per iteration in
+    dynamic-extent mode (the two-lite tier's body).  The same contract as
+    solve_bucket: `on_chunk(member_indices, done_iterations,
+    metrics_chunk)` after each iteration chunk, `finish(member_indices,
+    fdata_device [1, C, HB, WB])` per image."""
+    device = resolve_device(device)
+    HB, WB = bucket
+    samps = _samps(images[0])
+    C = len(samps)
+    pa, total_alpha = objective_alphas(float(weight), pweights, C)
+    pa_ss = [pa[c] * sy * sx for c, (sy, sx) in enumerate(samps)]
+    prob_cs = [c for c in range(C) if pa_ss[c] != 0.0]
+    if not stripe_grad.supports(C, HB, WB, samps):
+        raise ValueError(f"bucket {HB}x{WB} samps={samps} is outside the "
+                         "lite kernels' gate")
+    staged, exts, steps = _stage_images(images, bucket, iterations)
+    factors_np, _ = iter_step.fista_factors(1.0, int(iterations))
+    if iter_chunk is None:
+        iter_chunk = _default_iter_chunk(iterations, on_chunk)
+    # partials rows [sumsq C, tv, tv2, dists C] -> mega_metrics' columns
+    cols = list(range(C + 2)) + [C + 2 + c for c in prob_cs]
+    fdata_out = [] if finish is None else None
+    metrics_out = np.zeros((len(images), iterations, 4), np.float32)
+
+    for m in range(len(images)):
+        f, dats, q_rs, ext, step = _upload_chunk(
+            [staged[m]], [exts[m]], [steps[m]], samps, bucket, device)
+        f, ext, step = f[0], ext[0], step[0]
+        dats = [x[0] for x in dats]
+        q_rs = [x[0] for x in q_rs]
+        d = torch.zeros_like(f, dtype=torch.bfloat16)
+        devqs = [torch.zeros_like(q_rs[c], dtype=torch.bfloat16)
+                 for c in prob_cs]
+        prob_prev = np.float32(0.0)
+        done = 0
+        while done < iterations:
+            n = min(iter_chunk, iterations - done)
+            rows = []
+            for factor in factors_np[done:done + n]:
+                grads, sumsq, tv, tv2 = fused_grad_striped_lite(
+                    f, d, devqs, None, float(factor), 0, weight, samps,
+                    pa_ss, HB, HB, WB, extents=ext)
+                norms = torch.sqrt(sumsq)
+                scale = torch.where(norms == 0.0, 0.0, step / norms)
+                f, d, dq_out, dists = fused_project_multi_lite(
+                    f, d, grads, float(factor), scale, dats, q_rs, pa_ss,
+                    samps)
+                devqs = [x for x in dq_out if x is not None]
+                rows.append(torch.cat([sumsq, tv.reshape(1),
+                                       tv2.reshape(1), dists]))
+            # the chunk's one device -> host fetch
+            partials = torch.stack(rows).cpu().numpy()[:, cols]
+            metrics_out[m, done:done + n], prob_prev = mega_metrics(
+                partials, prob_prev, pa, total_alpha, simd_compat_logging)
+            done += n
+            if on_chunk is not None:
+                on_chunk([m], done, metrics_out[[m], done - n:done])
+        if finish is not None:
+            finish([m], f[None])
+        else:
+            fdata_out.append(f[None])
     if finish is not None:
         return BatchResult(None, metrics_out)
     return BatchResult(torch.cat(fdata_out), metrics_out)
@@ -354,11 +466,13 @@ def _pixels(fd: torch.Tensor, img: JpegImage, bits: int) -> np.ndarray:
 
 def plan_buckets(images: Sequence[Optional[JpegImage]],
                  pweights: Sequence[float]) -> Dict[Tuple, List[int]]:
-    """Bucket keys -> member indices (None entries skipped).  A "dyn" key
-    ("dyn", HB, WB, samps) is a K3 bucket (quantized_bucket_for) that
-    solver.mega_gate takes, the single-image tier's rule applied to the
-    canvas K3 would run; an "exact" key ("exact",) + geometry_key holds
-    the rest, for the two-kernel tier."""
+    """Bucket keys -> member indices (None entries skipped), by
+    solver.tier_rule, the single-image tier rule, applied to the canvas
+    each class would run: a "dyn" key ("dyn", HB, WB, samps) is a K3
+    bucket (quantized_bucket_for) whose tier is mega or mega-lite; a
+    "dyn2" key ("dyn2", HB, WB, samps) a two-lite bucket
+    (two_lite_bucket_for) whose tier is two-lite; an "exact" key
+    ("exact",) + geometry_key holds the rest, for the two-kernel tier."""
     buckets: Dict[Tuple, List[int]] = defaultdict(list)
     for i, img in enumerate(images):
         if img is None:
@@ -366,11 +480,30 @@ def plan_buckets(images: Sequence[Optional[JpegImage]],
         samps = tuple(_samps(img))
         n_prob = sum(1 for p in pweights[:img.nchannel] if p != 0.0)
         bucket = quantized_bucket_for(img)
-        if mega_gate(img.nchannel, bucket[0], bucket[1], samps, n_prob):
+        if tier_rule(img.nchannel, *bucket, samps, n_prob) in (
+                "mega", "mega-lite"):
             buckets[("dyn",) + bucket + (samps,)].append(i)
+            continue
+        b2 = two_lite_bucket_for(img)
+        if (b2 is not None and tier_rule(img.nchannel, *b2, samps, n_prob)
+                == "two-lite"):
+            buckets[("dyn2",) + b2 + (samps,)].append(i)
         else:
             buckets[("exact",) + geometry_key(img)].append(i)
     return buckets
+
+
+def bucket_tier(key: Tuple, pweights: Sequence[float]) -> str:
+    """The solver tier a planned bucket runs: mega or mega-lite for a
+    "dyn" key (tier_rule on its canvas), two-lite for "dyn2", two for
+    "exact"."""
+    if key[0] == "dyn2":
+        return "two-lite"
+    if key[0] != "dyn":
+        return "two"
+    samps = key[3]
+    n_prob = sum(1 for p in pweights[:len(samps)] if p != 0.0)
+    return tier_rule(len(samps), key[1], key[2], samps, n_prob)
 
 
 def decode_files_batched(
@@ -399,9 +532,11 @@ def decode_files_batched(
     PNG encoding with the remaining solves, and the returned dict is then
     empty.
 
-    `stats`, when given, receives: n_files, n_buckets, bucket_classes,
-    bucket_shapes ({"HxW": members}), bucket_sizes, k3_dispatches (the
-    K3 launches the buckets make), read_s (threaded JPEG reads), solve_s
+    `stats`, when given, receives: n_files, n_buckets, bucket_classes
+    (dyn, dyn2, exact), bucket_shapes ({"HxW": members} of the dyn and
+    dyn2 buckets), bucket_sizes, bucket_tiers ({tier: images}),
+    k3_dispatches and k3_lite_dispatches (the K3 launches the f32 and
+    the lite dyn buckets make), read_s (threaded JPEG reads), solve_s
     (bucket solves including the device-side crop, colour and the pixel
     fetch), on_pixels_s (seconds inside on_pixels, summed over threads)
     and wall_s.
@@ -432,16 +567,22 @@ def decode_files_batched(
         stats["n_buckets"] = len(buckets)
         stats["bucket_classes"] = {
             cls: sum(1 for k in buckets if k[0] == cls)
-            for cls in ("dyn", "exact")}
+            for cls in ("dyn", "dyn2", "exact")}
         stats["bucket_shapes"] = {
-            f"{k[1]}x{k[2]}" + ("" if k[3] == ((1, 1), (2, 2), (2, 2))
-                                else f" {k[3]}"): len(v)
-            for k, v in buckets.items() if k[0] == "dyn"}
+            f"{k[0]} {k[1]}x{k[2]}" + ("" if k[3] == ((1, 1), (2, 2), (2, 2))
+                                       else f" {k[3]}"): len(v)
+            for k, v in buckets.items() if k[0] != "exact"}
         stats["bucket_sizes"] = sorted((len(v) for v in buckets.values()),
                                        reverse=True)
-        stats["k3_dispatches"] = sum(
-            bucket_dispatches(len(v), iterations, streamed)
-            for k, v in buckets.items() if k[0] == "dyn")
+        tiers = {k: bucket_tier(k, cfg.pweights) for k in buckets}
+        stats["bucket_tiers"] = {
+            t: sum(len(v) for k, v in buckets.items() if tiers[k] == t)
+            for t in ("mega", "mega-lite", "two-lite", "two")}
+        for name, tier in (("k3_dispatches", "mega"),
+                           ("k3_lite_dispatches", "mega-lite")):
+            stats[name] = sum(
+                bucket_dispatches(len(v), iterations, streamed)
+                for k, v in buckets.items() if tiers[k] == tier)
         stats["read_s"] = read_s
 
     out: Dict[str, np.ndarray] = {}
@@ -468,7 +609,7 @@ def decode_files_batched(
             C = imgs[0].nchannel
             ch_id = 3 if C > 1 else 0
             try:
-                if key[0] == "dyn":
+                if key[0] in ("dyn", "dyn2"):
                     def on_chunk(mbs, done, metrics_chunk, members=members):
                         n = metrics_chunk.shape[1]
                         if logger is not None:
@@ -484,7 +625,8 @@ def decode_files_batched(
                         for bi, m in enumerate(mbs):
                             emit(members[m], f_dev[bi])
 
-                    solve_bucket(
+                    solve = solve_bucket if key[0] == "dyn" else solve_bucket_two
+                    solve(
                         imgs, (key[1], key[2]), cfg.weights[0],
                         list(cfg.pweights[:C]), iterations,
                         cfg.simd_compat_logging,

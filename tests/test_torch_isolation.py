@@ -97,12 +97,17 @@ class _CudaLooking(torch.Tensor):
         return torch.device("cuda", 0)
 
 
-def _cuda_looking(shape):
-    return torch.Tensor._make_subclass(_CudaLooking, torch.zeros(shape))
+def _cuda_looking(shape, dtype=torch.float32):
+    return torch.Tensor._make_subclass(_CudaLooking,
+                                       torch.zeros(shape, dtype=dtype))
 
 
 def test_torch_wrappers_never_run_plain_on_cuda_tensors(monkeypatch, no_card):
-    from jpeg2png_tpu_torch.kernels import grad_step, project_step
+    """Every kernel wrapper launches its kernel or raises for a CUDA
+    tensor: K1, K2, K3 (f32 and lite), K4 and K5; their plain versions
+    run only for CPU tensors."""
+    from jpeg2png_tpu_torch.kernels import (grad_step, iter_step,
+                                            project_step, stripe_grad)
 
     class PlainCalled(Exception):
         pass
@@ -110,22 +115,47 @@ def test_torch_wrappers_never_run_plain_on_cuda_tensors(monkeypatch, no_card):
     def plain_called(*a, **k):
         raise PlainCalled("plain version called for a CUDA tensor")
 
-    monkeypatch.setattr(grad_step, "fused_grad_plain", plain_called)
-    monkeypatch.setattr(project_step, "fused_project_multi_plain",
-                        plain_called)
+    for mod, name in ((grad_step, "fused_grad_plain"),
+                      (project_step, "fused_project_multi_plain"),
+                      (project_step, "fused_project_multi_lite_plain"),
+                      (stripe_grad, "fused_grad_striped_lite_plain"),
+                      (iter_step, "fused_solve_plain"),
+                      (iter_step, "fused_solve_lite_plain")):
+        monkeypatch.setattr(mod, name, plain_called)
     f = _cuda_looking((3, 16, 32))
-    with pytest.raises(Exception) as e:
-        grad_step.fused_grad(f, f, [None] * 3, 0.5, 0.3)
-    assert not isinstance(e.value, PlainCalled)
-    los = [_cuda_looking((16, 32)), _cuda_looking((8, 16)),
-           _cuda_looking((8, 16))]
-    with pytest.raises(Exception) as e:
-        project_step.fused_project_multi(
+    d = _cuda_looking((1, 16, 32), torch.bfloat16)
+    f1 = _cuda_looking((1, 16, 32))
+    q = _cuda_looking((16, 32))
+    los = [q, _cuda_looking((8, 16)), _cuda_looking((8, 16))]
+    calls = [
+        lambda: grad_step.fused_grad(f, f, [None] * 3, 0.5, 0.3),
+        lambda: project_step.fused_project_multi(
             f, f, _cuda_looking((3,)), los, los, [None] * 3, [None] * 3,
-            [0.0] * 3, [(1, 1), (2, 2), (2, 2)])
-    assert not isinstance(e.value, PlainCalled)
-    assert grad_step.fused_grad.launches == 0
-    assert project_step.fused_project_multi.launches == 0
+            [0.0] * 3, [(1, 1), (2, 2), (2, 2)]),
+        lambda: stripe_grad.fused_grad_striped_lite(
+            f1, d, [], None, 0.5, 0, 0.3, [(1, 1)], [0.0], 16, 16, 32),
+        lambda: project_step.fused_project_multi_lite(
+            f1, d, d, 0.5, _cuda_looking((1,)), [q.to(torch.int16)], [q],
+            [0.0], [(1, 1)]),
+        lambda: iter_step.fused_solve(
+            f1, f1, [], np.float32([0.0]), 1.0, [q.to(torch.int16)], [q],
+            [0.0], [(1, 1)], 0.3),
+        lambda: iter_step.fused_solve_lite(
+            f1, d, [], np.float32([0.0]), 1.0, [q.to(torch.int16)], [q],
+            [0.0], [(1, 1)], 0.3),
+        lambda: iter_step.fused_solve(
+            f1, f1, [], np.float32([0.0]), 1.0, [q.to(torch.int16)], [q],
+            [0.0], [(1, 1)], 0.3, lite=True),
+    ]
+    for call in calls:
+        with pytest.raises(Exception) as e:
+            call()
+        assert not isinstance(e.value, PlainCalled)
+    for fn in (grad_step.fused_grad, project_step.fused_project_multi,
+               project_step.fused_project_multi_lite,
+               stripe_grad.fused_grad_striped_lite, iter_step.fused_solve,
+               iter_step.fused_solve_lite):
+        assert fn.launches == 0
 
 
 def test_torch_cpu_tensors_take_the_plain_version():

@@ -288,7 +288,11 @@ def test_torch_mega_chunked_equals_one_shot():
     np.testing.assert_array_equal(fd_c.numpy(), fd_1.numpy())
 
 
-def test_torch_active_tier_and_tier_carries():
+def test_torch_active_tier_and_tier_carries(monkeypatch):
+    # the mega gate alone, the lite tiers closed: the mega and two tiers
+    monkeypatch.setattr(solver, "MEGA_MAX_PIXELS", 1280 * 1024)
+    monkeypatch.setattr(solver, "MEGA_LITE_MAX_PIXELS", 0)
+    monkeypatch.setattr(solver, "TWO_LITE_MAX_PIXELS", 0)
     geoms = (solver.ChannelGeometry(4, 4, 1, 1),
              solver.ChannelGeometry(2, 2, 2, 2),
              solver.ChannelGeometry(2, 2, 2, 2))
@@ -297,8 +301,7 @@ def test_torch_active_tier_and_tier_carries():
     assert solver.active_tier(geoms + (geoms[0],)) == "two"
     assert solver.active_tier(geoms + (geoms[0],), [0.0] * 4) == "mega"
     big = (solver.ChannelGeometry(512, 512, 1, 1),)
-    assert (solver.active_tier(big)
-            == ("mega" if 4096 * 4096 <= solver.MEGA_MAX_PIXELS else "two"))
+    assert solver.active_tier(big) == "two"
     rng = np.random.default_rng(6)
     datas, quants, samps = _synth(rng, [(2, 2, 1, 1)])
     _, _, carry = solver.solve_steps(datas, quants, samps, 0.3, [0.001], 4,

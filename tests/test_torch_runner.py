@@ -114,10 +114,12 @@ def test_torch_corpus_buckets():
 
 def test_torch_buckets_follow_the_mega_gate(fixtures_dir, monkeypatch):
     """Serving sends a bucket to K3 by the single-image tier's rule
-    (solver.mega_gate on the bucket canvas): buckets above
-    MEGA_MAX_PIXELS go to the two-kernel (exact) class, and moving the
-    threshold moves them; the exact class decodes like the per-file
-    path and launches no K3."""
+    (solver.tier_rule on the bucket canvas, the lite tiers' gates closed
+    here): buckets above MEGA_MAX_PIXELS go to the two-kernel (exact)
+    class, and moving the threshold moves them; the exact class decodes
+    like the per-file path and launches no K3."""
+    monkeypatch.setattr(solver, "MEGA_LITE_MAX_PIXELS", 0)
+    monkeypatch.setattr(solver, "TWO_LITE_MAX_PIXELS", 0)
     names = ["lineart64_q20_420", "photo80_q30_422", "odd100x52_q25_420"]
     files = [str(fixtures_dir / f"{n}.jpg") for n in names]
     imgs = [read_jpeg(f) for f in files]
@@ -140,7 +142,7 @@ def test_torch_buckets_follow_the_mega_gate(fixtures_dir, monkeypatch):
     cfg = SolverConfig(iterations=(2,) * 3)
     stats = {}
     out = runner.decode_files_batched(files, cfg, stats=stats, device="cpu")
-    assert stats["bucket_classes"] == {"dyn": 2, "exact": 1}
+    assert stats["bucket_classes"] == {"dyn": 2, "dyn2": 0, "exact": 1}
     assert stats["k3_dispatches"] == 2
     for f, img in zip(files, imgs):
         ref = smooth_decode(img, cfg, device="cpu").pixels
