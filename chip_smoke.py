@@ -41,7 +41,20 @@ non-zero exit and no result line):
      against the runner's bucket plan (dyn buckets on K3 or K3 lite, dyn2
      images on K4 + K5, exact images on K1 + K2), every PNG > 45 dB
      against the same file decoded alone on the two-kernel tier;
-  8. a JSON line of end-to-end numbers, one JSON line of kernel records,
+  8. the row-striped path (parallel/stripes.py), 4 bands on the one card
+     (K7 and K6 were held against their plain versions in phase 4: bands
+     first, middle, last and in the padding, null, zero and random halos,
+     the 100.7 MP band; K6 at five footprints, a region gap, frozen
+     padding, and against K2 on the same band): the smoke JPEG striped
+     (K7 = K2 = 200 launches, K1 = 0, 3 collectives per iteration, rows
+     0-1 and 50 iterations against the two tier and the striped plain
+     path, the lite body forced: K4 = K5 = 200), three goldens through
+     the pipeline striped, -s striped (K7 = K6 = 600), the 100.7 MP
+     problem (the smoke JPEG's blocks tiled 4 x 4, 12288 x 8192) against
+     the two tier with times and peak memory, -s on it (K7 = K6 = 600),
+     K7's and K6's times at its band shapes, and cli --tpu-stripes 4 on
+     one card (the clamp warning);
+  9. a JSON line of end-to-end numbers, one JSON line of kernel records,
      then the device line last.
 
 Imports nothing of JAX or of the JAX package jpeg2png_tpu.  Writes only
@@ -233,6 +246,20 @@ def _k1_case(rng, C, H, W, weight, prob, h_true=None, w_true=None):
     return g_err
 
 
+def _pgrad_tol(ref_pg, pa, dqs) -> float:
+    """The gate of a projection kernel's prob gradient against its plain
+    version: 1e-5 of its magnitude, plus the coefficients' rounding that
+    reaches it.  The two sides compute the coefficients in another
+    summation order (with fused multiply-adds), up to 8 ulps (2^-21
+    relative) of the coefficients' magnitude apart; devp * iq = (clamp -
+    dq) * iq^2 cancels that magnitude down to the deviation and passes the
+    difference on times iq^2 <= 1 (q >= 1), and p_alpha times the inverse
+    transform, at most 1 per coefficient, carries it to the pixels."""
+    coef_mag = max(float(d.abs().max()) for d in dqs)
+    return (1e-5 * max(1e-3, float(ref_pg.abs().max()))
+            + pa * 2.0 ** -21 * coef_mag)
+
+
 def _k2_case(rng, H, W, samps, prob, gap_rows=0):
     import numpy as np
     import torch
@@ -278,7 +305,8 @@ def _k2_case(rng, H, W, samps, prob, gap_rows=0):
     torch.cuda.synchronize()
     # grids: 1e-5 of the data's magnitude (the two sides run the same
     # f32 transforms with different summation orders and fused
-    # multiply-adds); distances: rtol 1e-5 (summation order)
+    # multiply-adds), pgrad also the coefficients' rounding (_pgrad_tol);
+    # distances: rtol 1e-5 (summation order)
     f_err = max_err(got[0], ref[0])
     f_tol = 1e-5 * float(ref[0].abs().max())
     require(f_err <= f_tol, f"K2 fnew {samps}: {f_err} > {f_tol}")
@@ -288,7 +316,8 @@ def _k2_case(rng, H, W, samps, prob, gap_rows=0):
                     f"K2 channel {c}: prob off but pgrad/dist set")
             continue
         p_err = max_err(got[1][c], ref[1][c])
-        p_tol = 1e-5 * max(1e-3, float(ref[1][c].abs().max()))
+        p_tol = _pgrad_tol(ref[1][c], pa_sss[c] / (samps[c][0] * samps[c][1]),
+                           [dqs[c]])
         require(p_err <= p_tol, f"K2 pgrad {samps} c{c}: {p_err} > {p_tol}")
         d_rel = abs(float(got[2][c]) - float(ref[2][c])) / max(
             1e-30, abs(float(ref[2][c])))
@@ -1038,7 +1067,8 @@ def _counters():
     return (grad_step.fused_grad, project_step.fused_project_multi,
             iter_step.fused_solve, iter_step.fused_solve_lite,
             stripe_grad.fused_grad_striped_lite,
-            project_step.fused_project_multi_lite)
+            project_step.fused_project_multi_lite,
+            stripe_grad.fused_grad_striped, project_step.fused_project)
 
 
 def zero_counts() -> None:
@@ -1239,8 +1269,9 @@ def phase_tier_sweep(card: str):
     return sweep
 
 
-def _patched_plain(solver):
-    """Point the solver's kernel names at the plain versions (and back)."""
+def _patched_plain(module):
+    """Point the kernel names `module` holds (the solver's, the striped
+    solver's) at the plain versions (and back)."""
     from jpeg2png_tpu_torch.kernels import (grad_step, iter_step,
                                             project_step, stripe_grad)
 
@@ -1251,18 +1282,21 @@ def _patched_plain(solver):
              "fused_grad_striped_lite":
                  stripe_grad.fused_grad_striped_lite_plain,
              "fused_project_multi_lite":
-                 project_step.fused_project_multi_lite_plain}
+                 project_step.fused_project_multi_lite_plain,
+             "fused_grad_striped": stripe_grad.fused_grad_striped_plain,
+             "fused_project": project_step.fused_project_plain}
+    names = {n: fn for n, fn in names.items() if hasattr(module, n)}
 
     @contextlib.contextmanager
     def cm():
-        saved = {n: getattr(solver, n) for n in names}
+        saved = {n: getattr(module, n) for n in names}
         for n, fn in names.items():
-            setattr(solver, n, fn)
+            setattr(module, n, fn)
         try:
             yield
         finally:
             for n, fn in saved.items():
-                setattr(solver, n, fn)
+                setattr(module, n, fn)
     return cm()
 
 
@@ -1570,7 +1604,499 @@ def phase_serving(card, files, images):
     return runs
 
 
+# ------------------------------------ the row-striped path (K6, K7)
+
+STRIPE_BANDS = 4          # bands of the striped runs, all on the one card
+TILE = 4                  # the 100.7 MP problem: the smoke JPEG's blocks 4x4
+
+
+def _band_mesh():
+    """STRIPE_BANDS bands on the current card (stripe_mesh maps bands onto
+    cards one each by default; an explicit list may repeat a card)."""
+    import torch
+
+    from jpeg2png_tpu_torch.parallel.mesh import stripe_mesh
+
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    return stripe_mesh(STRIPE_BANDS, [dev] * STRIPE_BANDS)
+
+
+def _rand(rng, shape, sd):
+    import numpy as np
+    import torch
+
+    return torch.as_tensor(rng.normal(0, sd, shape).astype(np.float32),
+                           device=DEVICE)
+
+
+def _k7_case(rng, label, C, L, W, row0, ext, prob, weight, halo):
+    """K7 against its plain version on random data, K1's gates: gradient
+    within 1e-5 of its magnitude (the stencil rounds op for op,
+    -fmad=false; only the channel sums of the norms may associate
+    differently), extrap 1e-6, sums rtol 1e-5 (summation order).  halo =
+    (top, bottom), each "null" (no halo arrays: zeros), "zero" or "random"
+    rows of f and fista.  Outside the true extent the gradient must be the
+    prob term exactly (0 without one)."""
+    import torch
+
+    from jpeg2png_tpu_torch.kernels import stripe_grad
+
+    f = _rand(rng, (C, L, W), 50)
+    fi = f + _rand(rng, (C, L, W), 2)
+    pg = _rand(rng, (sum(prob), L, W), 1)
+    it = iter(pg)
+    pgs = [next(it) if p else None for p in prob]
+    rows = {}
+    for side, kind in zip(("top", "bot"), halo):
+        rows[side] = (None if kind == "null" else
+                      [_rand(rng, (C, 2, W), 50) if kind == "random"
+                       else torch.zeros((C, 2, W), device=DEVICE)
+                       for _ in range(2)])
+    halos = None
+    if rows["top"] is not None or rows["bot"] is not None:
+        z = torch.zeros((C, 2, W), device=DEVICE)
+        top = rows["top"] or [z, z]
+        bot = rows["bot"] or [z, z]
+        halos = (top[0], bot[0], top[1], bot[1])
+    args = (f, fi, pgs, halos, 0.37, row0, weight, *ext)
+    got = stripe_grad.fused_grad_striped(*args)
+    ref = stripe_grad.fused_grad_striped_plain(*args)
+    torch.cuda.synchronize()
+    label = (f"K7 {label} [{C}, {L}, {W}] row0={row0} true {ext[0]}x{ext[1]} "
+             f"prob={prob} w={weight} halo={halo}")
+    g_err = max_err(got[0], ref[0])
+    g_tol = 1e-5 * max(1.0, float(ref[0].abs().max()))
+    e_err = max_err(got[1], ref[1])
+    e_tol = 1e-6 * float(ref[1].abs().max())
+    require(g_err <= g_tol, f"{label} grad: {g_err} > {g_tol}")
+    require(e_err <= e_tol, f"{label} extrap: {e_err} > {e_tol}")
+    for name, a, b in (("sumsq", got[2], ref[2]), ("tv", got[3], ref[3]),
+                       ("tv2", got[4], ref[4])):
+        _rel_gate(label, name, a, b, 1e-5)
+    h_out = max(0, min(L, ext[0] - row0))
+    for c, p in enumerate(pgs):
+        want = torch.zeros_like(f[c]) if p is None else p
+        require(torch.equal(got[0][c, h_out:], want[h_out:])
+                and torch.equal(got[0][c, :, ext[1]:], want[:, ext[1]:]),
+                f"{label}: gradient outside the true extent")
+    log(f"  {label}: grad err {g_err:.3g} (tol {g_tol:.3g}), extrap err "
+        f"{e_err:.3g}, sums ok")
+    return g_err
+
+
+def _k6_inputs(rng, H, W, sy, sx, prob, gap_rows=0, pad_rows=0):
+    """K6's inputs: extrap ~ N(0, 50), grad ~ N(0, 1), a one-element step
+    scale, boxes centred on fmid's own coefficients with a +-2-step jitter
+    (some bind); `gap_rows` coefficient rows a region gap (+-2^39, no prob
+    term); `pad_rows` coefficient rows frozen padding (zero state, lo = hi
+    = dq = iq = 0)."""
+    import numpy as np
+    import torch
+
+    from jpeg2png_tpu_torch.kernels.project_step import GAP_BOX
+    from jpeg2png_tpu_torch.ops.dct_raster import sampled_dct
+
+    e, g = _rand(rng, (H, W), 50), _rand(rng, (H, W), 1)
+    scale = torch.as_tensor(rng.uniform(0.01, 0.05, 1).astype(np.float32),
+                            device=DEVICE)
+    if pad_rows:
+        e[-pad_rows * sy:] = 0.0
+        g[-pad_rows * sy:] = 0.0
+    hc, wc = H // sy, W // sx
+    q = torch.as_tensor(np.tile(rng.integers(1, 60, (8, 8)).astype(
+        np.float32), (hc // 8, wc // 8)), device=DEVICE)
+    jitter = torch.as_tensor(rng.integers(-2, 3, (hc, wc)), device=DEVICE,
+                             dtype=torch.float32)
+    dq = (torch.round(sampled_dct(e - scale * g, sy, sx) / q) + jitter) * q
+    lo, hi, iq = dq - 0.5 * q, dq + 0.5 * q, 1.0 / q
+    if gap_rows:
+        lo[-gap_rows:], hi[-gap_rows:] = -GAP_BOX, GAP_BOX
+        dq[-gap_rows:], iq[-gap_rows:] = 0.0, 0.0
+    if pad_rows:
+        for a in (lo, hi, dq, iq):
+            a[-pad_rows:] = 0.0
+    pa_ss = 0.36 * sy * sx if prob else 0.0
+    return (e, g, scale, lo, hi, dq if prob else None, iq if prob else None,
+            pa_ss, sy, sx)
+
+
+def _k6_case(rng, H, W, sy, sx, prob, gap_rows=0, pad_rows=0):
+    """K6 against its plain version, K2's gates: fnew within 1e-5 of its
+    magnitude (the same f32 transforms, other summation orders and fused
+    multiply-adds), pgrad to _pgrad_tol, the distance rtol 1e-5; frozen
+    padding exactly 0.  Then K6 against K2 on the same one-channel band
+    (the same device functions; K6's footprint is a compile-time
+    constant), to the same gates."""
+    import torch
+
+    from jpeg2png_tpu_torch.kernels import project_step
+
+    args = _k6_inputs(rng, H, W, sy, sx, prob, gap_rows, pad_rows)
+    got = project_step.fused_project(*args)
+    ref = project_step.fused_project_plain(*args)
+    e, g, scale, lo, hi, dq, iq, pa_ss = args[:8]
+    k2 = project_step.fused_project_multi(
+        e[None], g[None], scale, [lo], [hi], [dq], [iq], [pa_ss], [(sy, sx)])
+    torch.cuda.synchronize()
+    label = (f"K6 {H}x{W} samp=({sy}, {sx}) prob={prob} gap_rows={gap_rows} "
+             f"pad_rows={pad_rows}")
+    f_tol = 1e-5 * float(ref[0].abs().max())
+    f_err = max_err(got[0], ref[0])
+    require(f_err <= f_tol, f"{label} fnew: {f_err} > {f_tol}")
+    k2_err = max_err(got[0], k2[0][0])
+    require(k2_err <= f_tol, f"{label} fnew vs K2: {k2_err} > {f_tol}")
+    if prob:
+        p_tol = _pgrad_tol(ref[1], pa_ss / (sy * sx), [dq])
+        for what, a, b in (("pgrad", got[1], ref[1]),
+                           ("pgrad vs K2", got[1], k2[1][0])):
+            err = max_err(a, b)
+            require(err <= p_tol, f"{label} {what}: {err} > {p_tol}")
+        _rel_gate(label, "dist", got[2], ref[2], 1e-5)
+        _rel_gate(label, "dist vs K2", got[2], k2[2][0], 1e-5)
+    else:
+        require(got[1] is None and float(got[2]) == 0.0,
+                f"{label}: prob off but pgrad/dist set")
+    if pad_rows:
+        require(not got[0][-pad_rows * sy:].any(), f"{label}: padding not 0")
+    log(f"  {label}: fnew err {f_err:.3g} (tol {f_tol:.3g}); K6 vs K2 fnew "
+        f"{k2_err:.3g} ({'bit-equal' if k2_err == 0 else 'within the gate'})")
+    return f_err
+
+
+def striped_kernel_cases(rng):
+    """K7 and K6 against their plain versions: K7 on the first, a middle
+    and the last band, a band wholly in the padding, null, zero and random
+    halos, C = 1, 2, 3, prob on and off, weight 0 and 0.3, and once at the
+    100.7 MP problem's band [3, 2048, 12288]; K6 at (1,1), (2,2), (2,1),
+    (1,2) and (1,4), prob on and off, a region gap, frozen padding, and at
+    that band's shape.  Returns the max abs errors (K7 grad, K6 fnew)."""
+    k7 = [
+        _k7_case(rng, "first band", 3, 128, 256, 0, (512, 256), [True] * 3,
+                 0.3, ("null", "random")),
+        _k7_case(rng, "middle band", 3, 128, 256, 128, (512, 250),
+                 [True, False, True], 0.3, ("random", "random")),
+        _k7_case(rng, "last band, true extent inside", 3, 128, 256, 384,
+                 (450, 250), [True] * 3, 0.3, ("random", "zero")),
+        _k7_case(rng, "band in the padding", 1, 64, 96, 256, (200, 96),
+                 [True], 0.3, ("random", "zero")),
+        _k7_case(rng, "C=1 weight 0", 1, 64, 128, 64, (1000, 128), [False],
+                 0.0, ("random", "random")),
+        _k7_case(rng, "last band weight 0", 3, 32, 64, 32, (64, 60),
+                 [False] * 3, 0.0, ("random", "null")),
+        _k7_case(rng, "odd band", 2, 40, 72, 40, (100, 70), [False, True],
+                 0.5, ("zero", "random")),
+        _k7_case(rng, "100.7 MP band", 3, 2048, 12288, 2048, (8192, 12288),
+                 [True] * 3, 0.3, ("random", "random")),
+    ]
+    k6 = [
+        _k6_case(rng, 128, 256, 1, 1, True),
+        _k6_case(rng, 128, 256, 2, 2, True, gap_rows=8),
+        _k6_case(rng, 128, 256, 2, 1, False, pad_rows=16),
+        _k6_case(rng, 64, 256, 1, 2, True),
+        _k6_case(rng, 64, 96, 1, 1, False),
+        _k6_case(rng, 48, 128, 1, 4, True, pad_rows=8),
+        _k6_case(rng, 2048, 12288, 1, 1, True),
+        _k6_case(rng, 2048, 12288, 2, 2, True),
+    ]
+    return max(k7), max(k6)
+
+
+def _rgb8(f, h, w):
+    """The 8-bit RGB pixels pipeline._pack gives, kept on the card."""
+    import torch
+
+    y = f[0][:h, :w] + 128.0
+    cb, cr = f[1][:h, :w], f[2][:h, :w]
+    rgb = torch.stack([y + 1.402 * cr, y - 0.34414 * cb - 0.71414 * cr,
+                       y + 1.772 * cb]).clamp(0.0, 255.0)
+    return rgb.to(torch.int32).to(torch.float64)
+
+
+def _psnr_dev(a, b) -> float:
+    mse = float(((a - b) ** 2).mean())
+    return math.inf if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+
+def _rows01_gate(label, ours, ref):
+    """CSV rows 0-1 of a striped solve against the two tier: rtol 1e-4,
+    the prob distance also atol 1e-4 (tests/test_torch_solver.py's gate;
+    the band partial sums add in another order)."""
+    import numpy as np
+
+    for col in range(4):
+        atol = 1e-4 if col == 1 else 0.0
+        require(np.allclose(ours[:2, col], ref[:2, col], rtol=1e-4,
+                            atol=atol),
+                f"{label} rows 0-1 column {col}: {ours[:2, col]} vs "
+                f"{ref[:2, col]}")
+
+
+def _launches(**nonzero) -> dict:
+    """Every kernel's expected launch count: `nonzero`, else 0."""
+    want = {fn.__name__: 0 for fn in _counters()}
+    want.update(nonzero)
+    return want
+
+
+def _timed_solve(fn):
+    """(result, ms, peak bytes) of fn() on the card: CUDA events around it
+    and torch.cuda.max_memory_allocated after a reset."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), torch.cuda.max_memory_allocated()
+
+
+def phase_striped(card: str, errs):
+    """The row-striped path on the card, STRIPE_BANDS bands on one card:
+    the 3072x2048 smoke JPEG (rows 0-1 and 50 iterations against the two
+    tier and the striped plain path, launch and collective counts, the
+    lite body forced), three goldens and -s through the pipeline, the
+    100.7 MP tiled problem against the two tier (times and peak memory),
+    -s on it (each channel a one-channel striped solve: K7 + K6), K7's
+    and K6's times at its band shapes, and `cli --tpu-stripes 4` on one
+    card (the clamp warning)."""
+    import io
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from pngdec import decode_png
+
+    from jpeg2png_tpu_torch.cli import main as cli_main
+    from jpeg2png_tpu_torch.io import read_jpeg
+    from jpeg2png_tpu_torch.kernels import project_step, stripe_grad
+    from jpeg2png_tpu_torch.models import solver
+    from jpeg2png_tpu_torch.parallel import stripes
+    from jpeg2png_tpu_torch.pipeline import decode_file
+    from jpeg2png_tpu_torch.utils.config import SolverConfig
+
+    n, it = STRIPE_BANDS, 50
+    path = {}
+
+    # --- the smoke JPEG over 4 bands
+    img = read_jpeg(SMOKE_JPEG)
+    h, w = img.height, img.width
+    args = _args(img) + (0.3, [0.001] * 3, it)
+    mesh = _band_mesh()
+    zero_counts()
+    fd_s, m_s = stripes.solve_striped(*args, mesh)
+    torch.cuda.synchronize()
+    _expect(read_counts(), _launches(fused_grad_striped=n * it,
+                                     fused_project_multi=n * it),
+            "striped smoke solve (f32 body)")
+    require(mesh.comm.counts == {"halo": 2 * it, "all_reduce": it},
+            f"collectives {mesh.comm.counts}, expected 3 per iteration")
+    require(bool(torch.isfinite(fd_s).all()) and np.isfinite(m_s).all(),
+            "non-finite striped output")
+    fd_2, m_2 = solver.solve_joint(*args, device=DEVICE, tier="two")
+    _rows01_gate("striped smoke vs two tier", m_s, m_2)
+    p_two = _psnr_dev(_rgb8(fd_s, h, w), _rgb8(fd_2, h, w))
+    with _patched_plain(stripes):
+        fd_p, _ = stripes.solve_striped(*args, _band_mesh())
+    p_plain = _psnr_dev(_rgb8(fd_s, h, w), _rgb8(fd_p, h, w))
+    zero_counts()
+    fd_l, m_l = stripes.solve_striped(*args, _band_mesh(), body="lite")
+    torch.cuda.synchronize()
+    _expect(read_counts(), _launches(fused_grad_striped_lite=n * it,
+                                     fused_project_multi_lite=n * it),
+            "striped smoke solve (lite body)")
+    p_lite = _psnr_dev(_rgb8(fd_l, h, w), _rgb8(fd_2, h, w))
+    log(f"  striped {w}x{h}, {n} bands on one card, {it} iterations: "
+        f"K7 = K2 = {n * it} launches, {mesh.comm.counts}; rows 0-1 within "
+        f"rtol 1e-4 of the two tier; PSNR vs two tier {p_two:.2f} dB, vs "
+        f"the striped plain path {p_plain:.2f} dB; lite body (K4 = K5 = "
+        f"{n * it}) vs two tier {p_lite:.2f} dB")
+    for what, p in (("vs two tier", p_two), ("vs plain path", p_plain),
+                    ("lite vs two tier", p_lite)):
+        require(p > 45.0, f"striped smoke {what}: PSNR {p:.2f} <= 45 dB")
+    del fd_s, fd_2, fd_p, fd_l
+
+    # --- goldens and -s through the pipeline, 4 bands each
+    golden_psnr = {}
+    for name in GOLDENS:
+        out = OUT_DIR / f"{name}_i50_striped.png"
+        zero_counts()
+        decode_file(str(FIXTURES / f"{name}.jpg"), str(out), SolverConfig(),
+                    device=DEVICE, mesh=_band_mesh())
+        _expect(read_counts(), _launches(fused_grad_striped=n * it,
+                                         fused_project_multi=n * it),
+                f"golden {name} striped")
+        gold = decode_png((FIXTURES / "golden" / f"{name}_i50.png")
+                          .read_bytes())
+        golden_psnr[name] = p = psnr(read_own_png(out), gold)
+        log(f"  golden {name} i50 striped over {n} bands: PSNR {p:.2f} dB")
+        require(p > 45.0, f"golden {name} striped: PSNR {p:.2f} dB")
+    name = "photo512_q10_420"
+    sep = SolverConfig(separate_components=True)
+    out = OUT_DIR / f"{name}_s_striped.png"
+    zero_counts()
+    decode_file(str(FIXTURES / f"{name}.jpg"), str(out), sep, device=DEVICE,
+                mesh=_band_mesh())
+    sep_counts = read_counts()
+    _expect(sep_counts, _launches(fused_grad_striped=3 * n * it,
+                                  fused_project=3 * n * it),
+            "-s striped photo512")
+    ref = OUT_DIR / f"{name}_s_two.png"
+    decode_file(str(FIXTURES / f"{name}.jpg"), str(ref), sep, device=DEVICE,
+                tier="two")
+    p_sep = psnr(read_own_png(out), read_own_png(ref))
+    log(f"  -s striped {name} over {n} bands: K7 = K6 = {3 * n * it} "
+        f"launches; PSNR vs the -s two-tier decode {p_sep:.2f} dB")
+    require(p_sep > 45.0, f"-s striped: PSNR {p_sep:.2f} <= 45 dB")
+
+    # --- the 100.7 MP problem: the smoke JPEG's blocks tiled TILE x TILE
+    tiled = ([np.tile(d, (TILE, TILE, 1, 1)) for d in args[0]], args[1],
+             args[2], 0.3, [0.001] * 3, it)
+    H, W = h * TILE, w * TILE
+    big = {}
+    for label, fn in (
+            ("striped", lambda: stripes.solve_striped(*tiled, _band_mesh())),
+            ("two", lambda: solver.solve_joint(*tiled, device=DEVICE,
+                                               tier="two"))):
+        fn()                                                     # warm
+        zero_counts()
+        (fd, _), ms, peak = _timed_solve(fn)
+        big[label] = {"fd": fd, "ms": ms, "peak": peak,
+                      "launches": read_counts()}
+    _expect(big["striped"]["launches"],
+            _launches(fused_grad_striped=n * it, fused_project_multi=n * it),
+            "100.7 MP striped solve")
+    path["fused_grad_striped"] = n * it
+    p_big = _psnr_dev(_rgb8(big["striped"]["fd"], H, W),
+                      _rgb8(big["two"]["fd"], H, W))
+    del fd
+    for v in big.values():
+        del v["fd"]
+    log(f"  {W}x{H} ({H * W / 1e6:.1f} MP) over {n} bands, {it} iterations: "
+        f"striped {big['striped']['ms'] / it:.4f} ms per iteration, two "
+        f"tier {big['two']['ms'] / it:.4f} (set-up included); peak memory "
+        f"{big['striped']['peak'] / 2**30:.2f} / "
+        f"{big['two']['peak'] / 2**30:.2f} GiB; PSNR striped vs two tier "
+        f"{p_big:.2f} dB  [{card}]")
+    require(p_big > 45.0, f"100.7 MP striped vs two: PSNR {p_big:.2f} dB")
+
+    # --- -s on the 100.7 MP problem: each channel its own one-channel
+    #     striped solve (K7 + K6 bands), as pipeline.smooth_decode runs it
+    ones = [([tiled[0][c]], [tiled[1][c]], [tiled[2][c]],
+             SolverConfig().channel(c).weight, [0.001], it) for c in range(3)]
+    zero_counts()
+    sep_runs = [_timed_solve(lambda one=one: stripes.solve_striped(
+        *one, _band_mesh())) for one in ones]
+    sep_counts = read_counts()
+    _expect(sep_counts, _launches(fused_grad_striped=3 * n * it,
+                                  fused_project=3 * n * it),
+            "-s striped 100.7 MP solve")
+    path["fused_project"] = sep_counts["fused_project"]
+    sep_fd = [r[0][0][0] for r in sep_runs]
+    sep_ms = sum(r[1] for r in sep_runs)
+    del sep_runs
+    sep_ref = [solver.solve_joint(*one, device=DEVICE, tier="two")[0][0]
+               for one in ones]
+    p_sep_big = _psnr_dev(_rgb8(sep_fd, H, W), _rgb8(sep_ref, H, W))
+    del sep_fd, sep_ref
+    log(f"  -s on the {H * W / 1e6:.1f} MP problem, each channel striped over "
+        f"{n} bands: K7 = K6 = {3 * n * it} launches, {sep_ms / it:.4f} ms "
+        f"per iteration of the three solves; PSNR vs the per-channel two "
+        f"tier {p_sep_big:.2f} dB  [{card}]")
+    require(p_sep_big > 45.0, f"-s striped 100.7 MP: PSNR {p_sep_big:.2f}")
+    torch.cuda.empty_cache()
+
+    # --- K7 and K6 at the 100.7 MP problem's band shapes, on a real state
+    problem = stripes._Striped(*tiled, True, _band_mesh(), "f32")
+    carry, _ = problem.run(problem.initial_carry(), 3)
+    fs, fis, pgs = carry[:3]
+    above, below = problem._exchange(fs, fis)
+    b, C = 1, 3
+    k7_args = (fs[b], fis[b], list(pgs[b]),
+               (above[b][:C], below[b][:C], above[b][C:], below[b][C:]),
+               0.5, problem.row0s[b], 0.3, problem.H, problem.W)
+    luma = stripes._Striped([tiled[0][0]], [tiled[1][0]], [tiled[2][0]], 0.3,
+                            [0.001], it, True, _band_mesh(), "f32")
+    lc, _ = luma.run(luma.initial_carry(), 3)
+    g1, e1, sumsq, _, _ = stripe_grad.fused_grad_striped(
+        lc[0][b], lc[1][b], [lc[2][b][0]], None, 0.5, luma.row0s[b], 0.3,
+        luma.H, luma.W)
+    scale = luma.step / torch.sqrt(sumsq)
+    los, his, dqs, iqs = luma.consts[b]
+    k6_args = (e1[0], g1[0], scale, los[0], his[0], dqs[0], iqs[0],
+               luma.pa_sss[0], 1, 1)
+    timed = {}
+    for name, fn, plain, a in (
+            ("fused_grad_striped", stripe_grad.fused_grad_striped,
+             stripe_grad.fused_grad_striped_plain, k7_args),
+            ("fused_project", project_step.fused_project,
+             project_step.fused_project_plain, k6_args)):
+        timed[name] = (cuda_ms(lambda: fn(*a), 20),
+                       cuda_ms(lambda: plain(*a), 3))
+    L, Wb = problem.L, problem.W
+    nblocks = -(-L // 16) * -(-Wb // 32)
+    bounds = {
+        "fused_grad_striped": (
+            _bytes_k1(C, C, L, Wb, nblocks) + 4 * 4 * C * 2 * Wb,
+            K1_OPS_PER_CHANNEL_PIXEL * C * L * Wb),
+        "fused_project": (_bytes_k2(1, 1, L, Wb, [(1, 1)], [True]),
+                          K2_OPS_PER_COEF * L * Wb),
+    }
+    records = [
+        _record("fused_grad_striped", "jpeg2png_tpu_torch/csrc/grad_step.cu",
+                "jpeg2png_tpu/kernels/stripe_grad.py:317",
+                path["fused_grad_striped"], errs["fused_grad_striped"],
+                *timed["fused_grad_striped"], *bounds["fused_grad_striped"]),
+        _record("fused_project", "jpeg2png_tpu_torch/csrc/project_step.cu",
+                "jpeg2png_tpu/kernels/project_step.py:274",
+                path["fused_project"], errs["fused_project"],
+                *timed["fused_project"], *bounds["fused_project"]),
+    ]
+    for r in records:
+        log(f"  {r['name']}: {r['ms']:.4f} ms median (bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}), plain "
+            f"{r['plain_ms']:.4f} ms  [{card}]")
+    del problem, luma, carry, lc, fs, fis, pgs, above, below, k7_args, k6_args
+    torch.cuda.empty_cache()
+
+    # --- the CLI on one card: --tpu-stripes 4 clamps with a warning
+    err = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stderr(err):
+        rc = cli_main([str(FIXTURES / "photo512_q10_420.jpg"), "-o",
+                       str(OUT_DIR / "cli_stripes4.png"), "-f", "-q",
+                       "--tpu-stripes", "4", "--device", DEVICE])
+    cards = torch.cuda.device_count()
+    warned = f"--tpu-stripes 4 exceeds the {cards} available" in err.getvalue()
+    k7 = read_counts()["fused_grad_striped"]
+    require(rc == 0 and warned and (k7 == 0 if cards == 1 else k7 > 0),
+            f"cli --tpu-stripes 4: rc {rc}, K7 {k7}, stderr "
+            f"{err.getvalue()!r}")
+    log(f"  cli --tpu-stripes 4 on {cards} card(s): exit {rc}, warned: "
+        f"{err.getvalue().strip()!r}; K7 launches {k7}")
+    def finite(p):
+        return p if math.isfinite(p) else None
+    summary = {
+        "bands": n, "smoke_psnr_vs_two": finite(p_two),
+        "smoke_psnr_vs_plain": finite(p_plain),
+        "smoke_lite_psnr_vs_two": finite(p_lite),
+        "golden_psnr": {k: finite(v) for k, v in golden_psnr.items()},
+        "separate_psnr_vs_two": finite(p_sep), "tiled_mp": H * W / 1e6,
+        "tiled_psnr_vs_two": finite(p_big),
+        "tiled_separate_psnr_vs_two": finite(p_sep_big),
+        "tiled_separate_ms_per_iter": sep_ms / it,
+        "tiled_ms_per_iter": {k: v["ms"] / it for k, v in big.items()},
+        "tiled_peak_gib": {k: v["peak"] / 2 ** 30 for k, v in big.items()},
+        "collectives_per_iteration": 3}
+    return records, summary
+
+
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -1592,6 +2118,8 @@ def main() -> int:
     log(f"serving corpus read (one thread): {time.perf_counter() - t0:.3f} s")
     log("phase 3-4: kernels against their plain versions")
     errs = phase_kernels(images)
+    errs["fused_grad_striped"], errs["fused_project"] = striped_kernel_cases(
+        np.random.default_rng(1))
     log("phase 5: goldens, every tier")
     phase_goldens()
     log("phase 6: single image, 3072x2048 4:2:0 default flags, every tier")
@@ -1605,9 +2133,13 @@ def main() -> int:
         serving["every class"][0]["fused_solve_lite"])
     single["solve_ms_per_iter"] = {
         t: sweep[3][f"{t}_ms_per_iter"] for t in TIERS}
+    log(f"phase 8: the row-striped path, {STRIPE_BANDS} bands on one card")
+    striped_records, striped = phase_striped(card, errs)
+    records += striped_records
     log(json.dumps({"card": card, "build_s": build_s, "single": single,
                     "tier_sweep": sweep,
                     "serving": {k: v[1] for k, v in serving.items()},
+                    "striped": striped,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

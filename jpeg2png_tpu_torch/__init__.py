@@ -10,7 +10,8 @@ FISTA-accelerated projected subgradient method (reference:
 compute.c:406-465, README.md:99-116).  The hot loop runs on CUDA
 kernels written for Hopper (NVIDIA H100): two per iteration for large
 canvases, or one launch for every iteration of a chunk for small ones
-and for batches of mixed-size images (runner.py).
+and for batches of mixed-size images (runner.py); giant images solve in
+row bands over several devices or processes (parallel/).
 
 Layout (each module has its counterpart in the JAX package
 jpeg2png_tpu/, which stays the reference; this package imports none of
@@ -20,7 +21,9 @@ it):
                projection, prob term, color conversion (plain PyTorch)
     kernels/   the CUDA kernels' wrappers and plain versions; the sources
                are in csrc/ and build at first use (kernels/_build.py)
-    models/    the FISTA projected-subgradient solver (two tiers)
+    models/    the FISTA projected-subgradient solver (four tiers)
+    parallel/  the row-striped solve: band meshes, torch.distributed
+               processes, the striped solver (cli --tpu-stripes)
     runner.py  bucketed batch serving (cli --tpu-batch)
     utils/     config, CSV convergence logger, progress reporting
 """

@@ -10,10 +10,18 @@ and output-naming behavior:
   -1/--16-bits-png, -c/--csv-log, -h/--help, -V/--version
 
 plus --device {cuda,cpu}: the solve runs on the CUDA card by default
-and fails without one; --device cpu runs the plain PyTorch path; and
---tpu-batch (the JAX package's name for the same mode): several inputs
-in joint mode are solved in mixed-size buckets through the whole-solve
-kernel (runner.py).
+and fails without one; --device cpu runs the plain PyTorch path; and the
+JAX package's --tpu-* flags for the same modes:
+  --tpu-batch        several inputs in joint mode are solved in mixed-size
+                     buckets through the whole-solve kernel (runner.py);
+  --tpu-stripes N    each image is solved in N row bands, one per CUDA
+                     card (parallel/stripes.py; with -s each channel on
+                     its own); N beyond the cards clamps to them with a
+                     warning, and one card runs the single-device solver;
+  --tpu-distributed  join a multi-process run (parallel/distributed.py:
+                     JPEG2PNG_COORDINATOR, JPEG2PNG_NUM_PROCESSES,
+                     JPEG2PNG_PROCESS_ID); the bands are then the
+                     processes, and rank 0 writes the outputs.
 
     python -m jpeg2png_tpu_torch.cli picture.jpg
 """
@@ -85,9 +93,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="display this help text and exit")
     p.add_argument("-V", "--version", action="version",
                    version=f"jpeg2png_tpu_torch version {__version__}")
+    p.add_argument("--tpu-stripes", type=int, default=0, metavar="N",
+                   help="shard each image into N row stripes across "
+                        "devices (0 = auto: single device); with -s, "
+                        "each channel runs its own striped solve")
     p.add_argument("--tpu-batch", action="store_true",
                    help="solve several inputs batched: mixed sizes share "
                         "bucketed whole-solve launches (joint mode only)")
+    p.add_argument("--tpu-distributed", action="store_true",
+                   help="join a multi-process run (torch.distributed: "
+                        "coordinator/rank from JPEG2PNG_COORDINATOR, "
+                        "JPEG2PNG_NUM_PROCESSES, JPEG2PNG_PROCESS_ID); "
+                        "stripes then span the processes")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the solve runs (default cuda; cpu runs "
                         "the plain PyTorch path)")
@@ -209,18 +226,29 @@ def main(argv=None, stats=None) -> int:
     from jpeg2png_tpu_torch.utils.progress import ProgressBar
 
     device = resolve_device(args.device)   # no card: RuntimeError, no fallback
-    csv_f = open(args.csv_log, "w") if args.csv_log else None
+    batched = args.tpu_batch and nin > 1 and not cfg.separate_components
+    if args.tpu_distributed:
+        if batched:
+            raise SystemExit("--tpu-batch does not run under "
+                             "--tpu-distributed in this package")
+        from jpeg2png_tpu_torch.parallel.distributed import initialize
+        initialize(device=device)
+    from jpeg2png_tpu_torch.parallel.distributed import (
+        is_multi_process, is_primary)
+    # host side effects happen once, on rank 0: one CSV, one progress bar
+    primary = is_primary()
+    csv_f = open(args.csv_log, "w") if (args.csv_log and primary) else None
     # without a CSV nothing listens to the metrics: solves run one-shot
     logger = ConvergenceLogger(csv_f) if csv_f else None
     total = (nin * cfg.iterations[0] if not cfg.separate_components
              else nin * sum(cfg.iterations))
-    progress = None if args.quiet else ProgressBar(total)
+    progress = None if (args.quiet or not primary) else ProgressBar(total)
 
     def run_one(pair):
         infile, outfile = pair
         try:
             decode_file(infile, outfile, cfg, bits, logger, progress,
-                        device=device)
+                        device=device, stripes=args.tpu_stripes)
             return None
         except (ValueError, OSError) as e:
             return f"{infile}: {e}"
@@ -228,11 +256,13 @@ def main(argv=None, stats=None) -> int:
     # per-image error isolation: one bad file doesn't kill the batch
     # (an improvement over the reference, where die() exits)
     pairs = list(zip(args.inputs, outfiles))
-    batched = args.tpu_batch and nin > 1 and not cfg.separate_components
     if batched:
         errors = _run_batched(pairs, cfg, bits, logger, progress,
                               args.threads, device, stats)
-    elif args.threads and args.threads > 1 and nin > 1:
+    elif (args.threads and args.threads > 1 and nin > 1
+          and not is_multi_process()):
+        # threads only in a single process: every rank of a multi-process
+        # run must reach each file's collectives in the same order
         with concurrent.futures.ThreadPoolExecutor(args.threads) as pool:
             errors = [e for e in pool.map(run_one, pairs) if e]
     else:

@@ -1,20 +1,31 @@
-// K1: fused FISTA extrapolation + joint TV / TGV2 gradient, for Hopper.
+// K1 and K7: fused FISTA extrapolation + joint TV / TGV2 gradient, for
+// Hopper.
 //
-// Replaces the Pallas kernel jpeg2png_tpu/kernels/grad_step.py::fused_grad
-// (_kernel, _stencil_terms).  Computes, for all C channels of a [C, H, W]
-// f32 canvas (reference: compute.c:73-197, 427-440):
+// K1 replaces the Pallas kernel jpeg2png_tpu/kernels/grad_step.py::fused_grad
+// (_kernel, _stencil_terms); K7 replaces
+// jpeg2png_tpu/kernels/stripe_grad.py::fused_grad_striped (_kernel).  Both
+// compute, for all C channels of a band of L rows of an f32 canvas whose
+// first row is global row row0 (reference: compute.c:73-197, 427-440):
 //
 //   e      = f + factor * (f - fista)
 //   gx, gy = forward differences of e (zero on the last true col / row)
 //   grad   = alpha * TV gather + alpha2 * TGV2 gather, zeroed outside the
 //            true extent [h_true, w_true), plus the prob pixel gradient
+//   extrap = e on the band's own rows
 //   part   = per block: sum(grad^2) per channel, sum |g|, sum |G|
+//
+// K1 is the whole canvas as one band (row0 = 0, no halos).  K7 is a band of
+// the row-striped solve: the two rows the stencil reaches past either band
+// edge come from halo arrays [C, 2, W] of f and fista (the neighbouring
+// bands' rows; null: zeros, the canvas edge), not from the TPU's 8-row DMA
+// tiles, and every row mask keys on the global row row0 + band row.
 //
 // Bound on an H100: device memory.  It moves 4 * (3C + P) bytes per pixel
 // (f, fista, pgrad in; grad, extrap out) against ~150 flops per pixel.
 // Design: one block of 256 threads per 16 x 32 output tile.
 //   1. e is staged for all channels on the tile plus a 2-pixel halo: the
-//      TGV2 gather reaches through two chained differences.
+//      TGV2 gather reaches through two chained differences.  Rows past the
+//      band edges come from the halo arrays.
 //   2. On the tile plus a 1-pixel ring, every per-pixel term the gather
 //      reads (TV: g / |g|; TGV2: the p, q, r, center terms of the 7-point
 //      scatter) is computed once and kept in shared memory, instead of
@@ -23,12 +34,13 @@
 //      the version that rebuilt them (PERF.md, Findings).
 //   3. Each thread gathers two output pixels from those terms, writes grad
 //      and extrap once and accumulates its partial sums.
-// A block writes one row of partial sums; j2p_fused_grad then reduces the
-// rows in a fixed order (second kernel): no float atomics, so two runs
-// give the same bits.  Compiled with -fmad=false, the arithmetic rounds op
-// for op like the plain PyTorch version.  The edge masks follow
-// jpeg2png_tpu/kernels/grad_step.py:96-138, including the pad row / column
-// masks that apply when h_true < H or w_true < W.
+// A block writes one row of partial sums; a second kernel then reduces the
+// rows in a fixed order: no float atomics, so two runs give the same bits.
+// Compiled with -fmad=false, the arithmetic rounds op for op like the plain
+// PyTorch version.  The edge masks follow
+// jpeg2png_tpu/kernels/grad_step.py:96-138 and stripe_grad.py:188-262,
+// including the pad row / column masks that apply when the true extent ends
+// inside the canvas.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,23 +52,30 @@ constexpr int EW = TW + 4, EH = TH + 4;  // staged extrapolation: 2-pixel halo
 constexpr int SW = TW + 2, SH = TH + 2;  // per-pixel terms: 1-pixel ring
 constexpr int NT = 256;                  // threads per block
 constexpr int MAXC = 4;
+constexpr int HALO = 2;                  // rows of each halo array
 
 struct Params {
-  const float* f;
+  const float* f;       // [C, L, W] band
   const float* fista;
-  const float* pgrad;   // [P, H, W] or null
+  const float* ftop;    // [C, 2, W] rows above the band, or null (zeros)
+  const float* fbot;    // [C, 2, W] rows below the band, or null
+  const float* fitop;
+  const float* fibot;
+  const float* pgrad;   // [P, L, W] or null
   float* grad;
   float* extrap;
   float* part;          // [nblocks, C + 2]
-  int H, W, HT, WT;
+  int L, W, row0, HT, WT;
   float factor, alpha, alpha2;
   int pidx[MAXC];       // prob plane of channel c, -1 when off
 };
 
+// Tile coordinates are band rows; hl = h_true - row0 is the band row of the
+// true bottom edge, top = -row0 the band row of global row 0.
 template <int C>
 struct Tile {
   const float* e;       // shared [C][EH][EW], origin (y0 - 2, x0 - 2)
-  int y0, x0, HT, WT;
+  int y0, x0, hl, WT;
 
   __device__ float at(int c, int y, int x) const {
     return e[(c * EH + (y - y0 + 2)) * EW + (x - x0 + 2)];
@@ -66,7 +85,7 @@ struct Tile {
     return x < WT - 1 ? at(c, y, x + 1) - at(c, y, x) : 0.f;
   }
   __device__ float gy(int c, int y, int x) const {
-    return y < HT - 1 ? at(c, y + 1, x) - at(c, y, x) : 0.f;
+    return y < hl - 1 ? at(c, y + 1, x) - at(c, y, x) : 0.f;
   }
 };
 
@@ -104,26 +123,47 @@ __global__ void __launch_bounds__(NT) grad_kernel(Params p) {
 
   const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
   const int tid = threadIdx.x;
-  const int H = p.H, W = p.W, HT = p.HT, WT = p.WT;
-  const size_t HW = (size_t)H * W;
+  const int L = p.L, W = p.W, WT = p.WT;
+  const size_t LW = (size_t)L * W;
+  const int hl = p.HT - p.row0, top = -p.row0;
 
-  // 1. extrapolation on the tile + 2-pixel halo, zero outside the canvas
+  // 1. extrapolation on the tile + 2-pixel halo: band rows from f / fista,
+  //    the two rows past either band edge from the halo arrays, zero past
+  //    the canvas.  Halo rows extrapolate with the same factor.
   for (int i = tid; i < EH * EW; i += NT) {
     const int y = y0 - 2 + i / EW, x = x0 - 2 + i % EW;
-    const bool in = y >= 0 && y < H && x >= 0 && x < W;
-    const size_t o = (size_t)y * W + x;
+    const float* fr = nullptr;
+    const float* fir = nullptr;
+    size_t o = 0, plane = LW;
+    if (x >= 0 && x < W) {
+      if (y < 0) {
+        fr = p.ftop;
+        fir = p.fitop;
+        o = (size_t)(HALO + y) * W + x;
+        plane = (size_t)HALO * W;
+      } else if (y < L) {
+        fr = p.f;
+        fir = p.fista;
+        o = (size_t)y * W + x;
+      } else if (y < L + HALO) {
+        fr = p.fbot;
+        fir = p.fibot;
+        o = (size_t)(y - L) * W + x;
+        plane = (size_t)HALO * W;
+      }
+    }
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       float v = 0.f;
-      if (in) {
-        const float fv = p.f[c * HW + o];
-        v = fv + p.factor * (fv - p.fista[c * HW + o]);
+      if (fr != nullptr) {
+        const float fv = fr[c * plane + o];
+        v = fv + p.factor * (fv - fir[c * plane + o]);
       }
       e_s[c * EH * EW + i] = v;
     }
   }
   __syncthreads();
-  const Tile<C> t{e_s, y0, x0, HT, WT};
+  const Tile<C> t{e_s, y0, x0, hl, WT};
 
   // 2. per-pixel terms on the tile + 1-pixel ring, each computed once:
   //    the normalized TV differences and the TGV2 gather terms
@@ -133,7 +173,7 @@ __global__ void __launch_bounds__(NT) grad_kernel(Params p) {
   for (int i = tid; i < RING; i += NT) {
     const int r = i / SW, q = i % SW;
     const int y = y0 - 1 + r, x = x0 - 1 + q;
-    const bool own = r >= 1 && r <= TH && q >= 1 && q <= TW && y < H && x < W;
+    const bool own = r >= 1 && r <= TH && q >= 1 && q <= TW && y < L && x < W;
     float gx[C], gy[C];
     float gsq = 0.f;
 #pragma unroll
@@ -152,14 +192,15 @@ __global__ void __launch_bounds__(NT) grad_kernel(Params p) {
     }
     if (own) acc[C] += gn;
     if (TGV) {
+      const bool yin = y >= top + 1 && y < hl;   // global row in [1, h_true)
       float g_xx[C], sym[C], g_yy[C];
       float n2sq = 0.f;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         g_xx[c] = x >= 1 ? gx[c] - t.gx(c, y, x - 1) : 0.f;
         const float g_yx = (x >= 1 && x < WT) ? gy[c] - t.gy(c, y, x - 1) : 0.f;
-        const float g_xy = (y >= 1 && y < HT) ? gx[c] - t.gx(c, y - 1, x) : 0.f;
-        g_yy[c] = (y >= 1 && y < HT) ? gy[c] - t.gy(c, y - 1, x) : 0.f;
+        const float g_xy = yin ? gx[c] - t.gx(c, y - 1, x) : 0.f;
+        g_yy[c] = yin ? gy[c] - t.gy(c, y - 1, x) : 0.f;
         sym[c] = (g_xy + g_yx) * 0.5f;
         const float term = g_xx[c] * g_xx[c] + 2.f * sym[c] * sym[c]
                            + g_yy[c] * g_yy[c];
@@ -185,10 +226,10 @@ __global__ void __launch_bounds__(NT) grad_kernel(Params p) {
   for (int k = 0; k < TH / (NT / TW); ++k) {
     const int ly = ty + k * (NT / TW);
     const int y = y0 + ly, x = x0 + tx;
-    if (y >= H || x >= W) continue;
+    if (y >= L || x >= W) continue;
     const int s = (ly + 1) * SW + (tx + 1);   // ring index of (y, x)
-    const bool in_true = y < HT && x < WT;
-    const bool up = y >= 1 && y - 1 < HT, down = y + 1 < HT;
+    const bool in_true = y < hl && x < WT;
+    const bool up = y >= top + 1 && y - 1 < hl, down = y + 1 < hl;
     const bool left = x >= 1, right = x + 1 < W;
     const size_t o = (size_t)y * W + x;
 #pragma unroll
@@ -209,9 +250,9 @@ __global__ void __launch_bounds__(NT) grad_kernel(Params p) {
         g = g + p.alpha2 * g2;
       }
       if (!in_true) g = 0.f;   // padding stays frozen (grad_step.py:286-293)
-      if (p.pidx[c] >= 0) g = g + p.pgrad[p.pidx[c] * HW + o];
-      p.grad[c * HW + o] = g;
-      p.extrap[c * HW + o] = t.at(c, y, x);
+      if (p.pidx[c] >= 0) g = g + p.pgrad[p.pidx[c] * LW + o];
+      p.grad[c * LW + o] = g;
+      p.extrap[c * LW + o] = t.at(c, y, x);
       acc[c] += g * g;
     }
   }
@@ -256,46 +297,15 @@ cudaError_t launch(const Params& p, dim3 grid, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* j2p_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
-
-// Returns the first cudaGetLastError() that is not cudaSuccess, else 0.
-// part: [ceil(H/16) * ceil(W/32), C + 2] scratch; out: [C + 2] =
-// (sum grad^2 per channel, tv, tv2).
-// alpha = 1/sqrt(C) and alpha2 = (weight/sqrt(2))/sqrt(C) come from the
-// caller, rounded once to f32 as the plain version rounds them; tgv = 0
-// skips the second-order term.
-int j2p_fused_grad(const float* f, const float* fista, const float* pgrad,
-                   float* grad, float* extrap, float* part, float* out,
-                   int C, int H, int W, int h_true, int w_true,
-                   float factor, float alpha, float alpha2, int tgv,
-                   int pidx0, int pidx1, int pidx2, int pidx3, void* stream) {
-  if (C < 1 || C > MAXC) return (int)cudaErrorInvalidValue;
-  Params p;
-  p.f = f;
-  p.fista = fista;
-  p.pgrad = pgrad;
-  p.grad = grad;
-  p.extrap = extrap;
-  p.part = part;
-  p.H = H;
-  p.W = W;
-  p.HT = h_true;
-  p.WT = w_true;
-  p.factor = factor;
-  p.alpha = alpha;
-  p.alpha2 = alpha2;
-  p.pidx[0] = pidx0;
-  p.pidx[1] = pidx1;
-  p.pidx[2] = pidx2;
-  p.pidx[3] = pidx3;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
-  cudaStream_t s = (cudaStream_t)stream;
+// Launches the gradient kernel and the fixed-order reduction of its
+// partial sums; returns the first CUDA error, else 0.
+int run(const Params& p, int C, int tgv, float* out, cudaStream_t s) {
+  if (C < 1 || C > MAXC || p.L < 1 || p.W < 1) return (int)cudaErrorInvalidValue;
+  // a null halo pair reads as zeros: f and fista halos go together
+  if ((p.ftop == nullptr) != (p.fitop == nullptr) ||
+      (p.fbot == nullptr) != (p.fibot == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((p.W + TW - 1) / TW, (p.L + TH - 1) / TH);
   cudaError_t err;
   switch (C * 2 + (tgv ? 1 : 0)) {
     case 2: err = launch<1, false>(p, grid, s); break;
@@ -308,9 +318,60 @@ int j2p_fused_grad(const float* f, const float* fista, const float* pgrad,
     default: err = launch<4, true>(p, grid, s); break;
   }
   if (err != cudaSuccess) return (int)err;
-  reduce_columns<<<C + 2, NT, 0, s>>>(part, (int)(grid.x * grid.y), C + 2, out,
-                                      alpha, tgv ? alpha2 : 0.f, C);
+  reduce_columns<<<C + 2, NT, 0, s>>>(p.part, (int)(grid.x * grid.y), C + 2,
+                                      out, p.alpha, tgv ? p.alpha2 : 0.f, C);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* j2p_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+// A band of L rows of a [C, h_pad, W] canvas, its first row global row
+// row0 (K1: the whole canvas, row0 = 0, null halos); f, fista, pgrad
+// ([P, L, W]), grad, extrap: band tensors; ftop / fbot and fitop / fibot:
+// [C, 2, W] halo rows of f and fista just above / below the band, null for
+// zeros (the canvas edge).  part: [ceil(L/16) * ceil(W/32), C + 2] scratch;
+// out: [C + 2] = the band's (sum grad^2 per channel, tv, tv2).  alpha =
+// 1/sqrt(C) and alpha2 = (weight/sqrt(2))/sqrt(C) come from the caller,
+// rounded once to f32 as the plain version rounds them; tgv = 0 skips the
+// second-order term.  Returns the first CUDA error, else 0.
+int j2p_fused_grad_striped(const float* f, const float* fista,
+                           const float* ftop, const float* fbot,
+                           const float* fitop, const float* fibot,
+                           const float* pgrad, float* grad, float* extrap,
+                           float* part, float* out, int C, int L, int W,
+                           int row0, int h_true, int w_true, float factor,
+                           float alpha, float alpha2, int tgv, int pidx0,
+                           int pidx1, int pidx2, int pidx3, void* stream) {
+  Params p;
+  p.f = f;
+  p.fista = fista;
+  p.ftop = ftop;
+  p.fbot = fbot;
+  p.fitop = fitop;
+  p.fibot = fibot;
+  p.pgrad = pgrad;
+  p.grad = grad;
+  p.extrap = extrap;
+  p.part = part;
+  p.L = L;
+  p.W = W;
+  p.row0 = row0;
+  p.HT = h_true;
+  p.WT = w_true;
+  p.factor = factor;
+  p.alpha = alpha;
+  p.alpha2 = alpha2;
+  p.pidx[0] = pidx0;
+  p.pidx[1] = pidx1;
+  p.pidx[2] = pidx2;
+  p.pidx[3] = pidx3;
+  return run(p, C, tgv, out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

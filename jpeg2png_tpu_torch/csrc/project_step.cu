@@ -1,10 +1,14 @@
-// K2: fused normalized step + box projection + prob gradient, for Hopper.
+// K2 and K6: fused normalized step + box projection + prob gradient, for
+// Hopper.
 //
-// Replaces the Pallas kernel
+// K2 replaces the Pallas kernel
 // jpeg2png_tpu/kernels/project_step.py::fused_project_multi
-// (_kernel_multi, _stripe_math).  For every channel c of a [C, H, W] f32
-// canvas, with footprint (sy, sx) and coefficient rasters [H/sy, W/sx]
-// (reference: compute.c:209-216, 334-404, 38-70):
+// (_kernel_multi, _stripe_math); K6 replaces
+// jpeg2png_tpu/kernels/project_step.py::fused_project (_kernel,
+// _kernel_adapter), the same function for one channel.  For every channel c
+// of a [C, H, W] f32 canvas (K6: C = 1), with footprint (sy, sx) and
+// coefficient rasters [H/sy, W/sx] (reference: compute.c:209-216, 334-404,
+// 38-70):
 //
 //   fmid  = e - scale[c] * g
 //   m     = footprint mean of fmid            (8 x 8 per coefficient block)
@@ -38,7 +42,11 @@
 // a warp index it by different rows).  Precision: plain f32 with fused
 // multiply-adds; the TPU kernel's bf16x3 matrix-unit split is not needed.
 // Distances: one partial per block, reduced per channel in a fixed order
-// by a second kernel (no float atomics).
+// by a second kernel (no float atomics).  K6 runs the same device
+// functions (project_blocks, block_partial) on one channel with no
+// per-channel table and, for footprints of 1 or 2 pixels per axis, the
+// footprint as a compile-time constant: the row-striped solve's one-channel
+// bands (-s with --tpu-stripes, grayscale) take it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,40 +102,46 @@ struct Params {
   Chan ch[MAXC];
 };
 
-__global__ void __launch_bounds__(NT) project_kernel(Params p) {
+struct Smem {
   // 8x8 tiles padded to 9 columns: lanes of one warp that read column j
   // of the four blocks then hit four different banks
-  __shared__ float D[64];
-  __shared__ float A[KB][8][9];   // footprint means, then clamped coefs
-  __shared__ float T[KB][8][9];   // transform intermediate
-  __shared__ float B[KB][8][9];   // devp * iq
-  __shared__ float T2[KB][8][9];
-  __shared__ float red[NT / 32];
+  float D[64];
+  float A[KB][8][9];   // footprint means, then clamped coefs
+  float T[KB][8][9];   // transform intermediate
+  float B[KB][8][9];   // devp * iq
+  float T2[KB][8][9];
+  float red[NT / 32];
+};
 
+// The DCT matrix from __constant__ memory to shared memory (threads of a
+// warp index it by different rows).
+__device__ __forceinline__ void stage_dct(Smem& s) {
+  if (threadIdx.x < 64) s.D[threadIdx.x] = c_D[threadIdx.x];
+}
+
+// One thread block's share of a channel: four horizontally neighbouring
+// coefficient blocks of row cby, one thread per coefficient.  e, g, fnew:
+// the channel's [H, W] planes.  SY, SX: the footprint, or 0 for the
+// channel's own ch.sy, ch.sx at run time.  Returns the thread's term of the
+// prob distance (0 when the prob term is off).
+template <int SY, int SX>
+__device__ __forceinline__ float project_blocks(
+    const Chan ch, const float* e, const float* g, float* fnew, float scale,
+    int W, int local, Smem& sm) {
   const int tid = threadIdx.x;
-  if (tid < 64) D[tid] = c_D[tid];
-
-  int c = 0;
-  while (c + 1 < p.C && (int)blockIdx.x >= p.ch[c + 1].block0) ++c;
-  const Chan ch = p.ch[c];
-  const int local = blockIdx.x - ch.block0;
   const int cby = local / ch.nbx4;
   const int bx = (local % ch.nbx4) * KB + (tid & 31) / 8;
   const int u = tid >> 5, v = tid & 7, kb = (tid & 31) >> 3;
   const bool active = bx < ch.nbx;
-  const int sy = ch.sy, sx = ch.sx;
-  const int W = p.W;
-  const size_t HW = (size_t)p.H * W;
-  const float scale = p.scales[c];
+  const int sy = SY ? SY : ch.sy, sx = SX ? SX : ch.sx;
   const bool prob = ch.dq != nullptr;
+  const float* D = sm.D;
 
   // 1. normalized step on this coefficient's footprint, summed for its
   //    mean.  Step 5 reads the footprint again (from L1/L2) instead of
   //    holding up to 16 values in registers for the whole block: fewer
   //    registers, more resident blocks to hide memory latency.
   const int py0 = cby * 8 * sy + u * sy, px0 = bx * 8 * sx + v * sx;
-  const float* e = p.e + c * HW;
-  const float* g = p.g + c * HW;
   float sum = 0.f;
   if (active) {
     for (int i = 0; i < sy; ++i)
@@ -138,18 +152,18 @@ __global__ void __launch_bounds__(NT) project_kernel(Params p) {
   }
   // 1/(sy*sx) is a power of two: the product is the exact quotient
   const float mean = sum * (1.f / (float)(sy * sx));
-  A[kb][u][v] = mean;
+  sm.A[kb][u][v] = mean;
   __syncthreads();
 
   // 2. coefs = D m D^T
   float s = 0.f;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) s += A[kb][u][j] * D[v * 8 + j];
-  T[kb][u][v] = s;
+  for (int j = 0; j < 8; ++j) s += sm.A[kb][u][j] * D[v * 8 + j];
+  sm.T[kb][u][v] = s;
   __syncthreads();
   float coef = 0.f;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) coef += D[u * 8 + i] * T[kb][i][v];
+  for (int i = 0; i < 8; ++i) coef += D[u * 8 + i] * sm.T[kb][i][v];
 
   // 3. box projection and prob deviation at coefficient (8 cby + u, 8 bx + v)
   const int wc = W / sx;
@@ -165,8 +179,8 @@ __global__ void __launch_bounds__(NT) project_kernel(Params p) {
     }
   }
   __syncthreads();   // every thread has read T before A / T are rewritten
-  A[kb][u][v] = cl;
-  B[kb][u][v] = dd;
+  sm.A[kb][u][v] = cl;
+  sm.B[kb][u][v] = dd;
   __syncthreads();
 
   // 4. back = D^T clamp D (and D^T dd D for the prob gradient)
@@ -174,41 +188,79 @@ __global__ void __launch_bounds__(NT) project_kernel(Params p) {
   float s2 = 0.f;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    s += A[kb][u][k] * D[k * 8 + v];
-    s2 += B[kb][u][k] * D[k * 8 + v];
+    s += sm.A[kb][u][k] * D[k * 8 + v];
+    s2 += sm.B[kb][u][k] * D[k * 8 + v];
   }
-  T[kb][u][v] = s;
-  T2[kb][u][v] = s2;
+  sm.T[kb][u][v] = s;
+  sm.T2[kb][u][v] = s2;
   __syncthreads();
   float back = 0.f, pback = 0.f;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    back += D[k * 8 + u] * T[kb][k][v];
-    pback += D[k * 8 + u] * T2[kb][k][v];
+    back += D[k * 8 + u] * sm.T[kb][k][v];
+    pback += D[k * 8 + u] * sm.T2[kb][k][v];
   }
 
-  // 5. write the footprint: fnew (and pgrad) once per pixel
+  // 5. write the footprint: fnew (and pgrad) once per pixel, in the
+  //    reconstruction form (fmid - mean) + back
   if (active) {
     const float pg = ch.pa * pback;
     for (int i = 0; i < sy; ++i)
       for (int j = 0; j < sx; ++j) {
         const size_t o = (size_t)(py0 + i) * W + (px0 + j);
         const float fm = e[o] - scale * g[o];
-        p.fnew[c * HW + o] = (fm - mean) + back;
+        fnew[o] = (fm - mean) + back;
         if (ch.pgrad) ch.pgrad[o] = pg;
       }
   }
+  return dist;
+}
 
-  // 6. this block's distance partial, fixed-order reduction
+// This block's distance partial, fixed-order reduction.
+__device__ __forceinline__ void block_partial(float dist, Smem& sm, float* out) {
+  const int tid = threadIdx.x;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) dist += __shfl_down_sync(0xffffffffu, dist, o);
-  if ((tid & 31) == 0) red[tid >> 5] = dist;
+  if ((tid & 31) == 0) sm.red[tid >> 5] = dist;
   __syncthreads();
   if (tid == 0) {
     float t = 0.f;
-    for (int w = 0; w < NT / 32; ++w) t += red[w];
-    p.part[blockIdx.x] = t;
+    for (int w = 0; w < NT / 32; ++w) t += sm.red[w];
+    *out = t;
   }
+}
+
+// K2: every channel of the canvas, one launch.
+__global__ void __launch_bounds__(NT) project_kernel(Params p) {
+  __shared__ Smem sm;
+  stage_dct(sm);
+  int c = 0;
+  while (c + 1 < p.C && (int)blockIdx.x >= p.ch[c + 1].block0) ++c;
+  const size_t HW = (size_t)p.H * p.W;
+  const float dist = project_blocks<0, 0>(
+      p.ch[c], p.e + c * HW, p.g + c * HW, p.fnew + c * HW, p.scales[c], p.W,
+      blockIdx.x - p.ch[c].block0, sm);
+  block_partial(dist, sm, p.part + blockIdx.x);
+}
+
+// K6: one channel, its footprint fixed at compile time.
+struct OneParams {
+  const float* e;
+  const float* g;
+  const float* scale;   // [1] step_size / |grad| on the device
+  float* fnew;
+  float* part;
+  int W;
+  Chan ch;
+};
+
+template <int SY, int SX>
+__global__ void __launch_bounds__(NT) project_one_kernel(OneParams p) {
+  __shared__ Smem sm;
+  stage_dct(sm);
+  const float dist = project_blocks<SY, SX>(p.ch, p.e, p.g, p.fnew,
+                                            *p.scale, p.W, blockIdx.x, sm);
+  block_partial(dist, sm, p.part + blockIdx.x);
 }
 
 struct Ranges {
@@ -230,6 +282,12 @@ reduce_dists(const float* part, Ranges r, float* dists) {
     __syncthreads();
   }
   if (threadIdx.x == 0) dists[c] = r.prob[c] ? 0.5f * red[0] : 0.f;
+}
+
+template <int SY, int SX>
+cudaError_t launch_one(const OneParams& p, int nblocks, cudaStream_t s) {
+  project_one_kernel<SY, SX><<<nblocks, NT, 0, s>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -290,6 +348,58 @@ int j2p_fused_project_multi(const float* e, const float* g,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_dists<<<C, NT, 0, s>>>(part, r, dists);
+  return (int)cudaGetLastError();
+}
+
+// K6: one channel.  e, g, fnew, pgrad: [H, W] (pgrad null when the prob term
+// is off); lo, hi, dq, iq: [H/sy, W/sx] (dq, iq null when it is off);
+// scale: [1] on the device; pa: p_alpha.  part: [(H / (8 sy)) *
+// ceil(W / (8 sx) / 4)] scratch; dist: [1] = 0.5 * sum devp^2 (0 when the
+// prob term is off).  Footprints (1|2) x (1|2) run a kernel specialised for
+// them, the others (up to 4 x 4) K2's run-time form.
+int j2p_fused_project(const float* e, const float* g, const float* scale,
+                      float* fnew, float* pgrad, float* part, float* dist,
+                      const float* lo, const float* hi, const float* dq,
+                      const float* iq, float pa, int sy, int sx, int H, int W,
+                      void* stream) {
+  if (sy < 1 || sy > MAXS || sx < 1 || sx > MAXS || H % (8 * sy) ||
+      W % (8 * sx) || (dq == nullptr) != (pgrad == nullptr) ||
+      (dq == nullptr) != (iq == nullptr))
+    return (int)cudaErrorInvalidValue;
+  OneParams p;
+  p.e = e;
+  p.g = g;
+  p.scale = scale;
+  p.fnew = fnew;
+  p.part = part;
+  p.W = W;
+  p.ch.lo = lo;
+  p.ch.hi = hi;
+  p.ch.dq = dq;
+  p.ch.iq = iq;
+  p.ch.pgrad = pgrad;
+  p.ch.pa = pa;
+  p.ch.sy = sy;
+  p.ch.sx = sx;
+  p.ch.nbx = W / (8 * sx);
+  p.ch.nbx4 = (p.ch.nbx + KB - 1) / KB;
+  p.ch.block0 = 0;
+  const int nblocks = (H / (8 * sy)) * p.ch.nbx4;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  switch (sy * 8 + sx) {
+    case 9: err = launch_one<1, 1>(p, nblocks, s); break;
+    case 10: err = launch_one<1, 2>(p, nblocks, s); break;
+    case 17: err = launch_one<2, 1>(p, nblocks, s); break;
+    case 18: err = launch_one<2, 2>(p, nblocks, s); break;
+    default: err = launch_one<0, 0>(p, nblocks, s); break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  Ranges r;
+  r.start[0] = 0;
+  r.start[1] = nblocks;
+  r.prob[0] = dq != nullptr;
+  reduce_dists<<<1, NT, 0, s>>>(part, r, dist);
   return (int)cudaGetLastError();
 }
 

@@ -34,10 +34,11 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 # library name -> (source file under csrc/, extra nvcc flags)
 LIBRARIES = {
-    # -fmad=false: the stencil then rounds op for op like the plain
-    # PyTorch version (no fused multiply-adds), so the two agree to a few
-    # ulps and zero norms stay zero in both (the subgradient's 0/0 rule)
+    # K1 and K7.  -fmad=false: the stencil then rounds op for op like the
+    # plain PyTorch version (no fused multiply-adds), so the two agree to a
+    # few ulps and zero norms stay zero in both (the subgradient's 0/0 rule)
     "grad_step": ("grad_step.cu", ["-fmad=false"]),
+    # K2 and K6
     "project_step": ("project_step.cu", []),
     # the whole solve (K3): its gradient tile is K1's, so the same rule
     "iter_step": ("iter_step.cu", ["-fmad=false"]),

@@ -8,7 +8,9 @@ Replaces the Pallas kernel jpeg2png_tpu/kernels/grad_step.py::fused_grad
     grad   = TV gather + TGV2 gather + pgrad
     partials: per-channel sum(grad^2), tv objective, tv2 objective
 
-CUDA version: csrc/grad_step.cu.  What bounds it on an H100: memory.  It
+CUDA version: csrc/grad_step.cu, whose kernel also runs K7 (a band of
+the row-striped solve with its halo rows, kernels/stripe_grad.py;
+`launch` below serves both).  What bounds it on an H100: memory.  It
 reads f, fista and the prob gradient and writes grad and extrap, 15 f32
 canvases at C = P = 3 (~377 MB at 3072x2048), against ~150 flops per
 pixel.  What the design does about it: each block stages a 16x32 tile
@@ -36,6 +38,7 @@ from jpeg2png_tpu_torch.ops.tv import shift2d
 
 MAX_CHANNELS = 4
 TILE_H, TILE_W = 16, 32      # csrc/grad_step.cu TH, TW
+HALO_ROWS = 2                # rows of a band's halo arrays: the stencil's reach
 
 
 def stack_channels(seq) -> torch.Tensor:
@@ -145,8 +148,9 @@ def fused_grad_plain(fdatas, fistas, pgrads, factor: float, weight: float,
 
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 7            # f, fista, pgrad, grad, extrap, part, out
-    + [ctypes.c_int] * 5             # C, H, W, h_true, w_true
+    [ctypes.c_void_p] * 11           # f, fista, f/fista halos (4), pgrad,
+                                     # grad, extrap, part, out
+    + [ctypes.c_int] * 6             # C, L, W, row0, h_true, w_true
     + [ctypes.c_float] * 3           # factor, alpha, alpha2
     + [ctypes.c_int]                 # tgv (second-order term on)
     + [ctypes.c_int] * MAX_CHANNELS  # pgrad plane index per channel (-1: none)
@@ -156,11 +160,66 @@ _ARGTYPES = (
 
 def _launcher():
     lib = _build.library("grad_step")
-    fn = lib.j2p_fused_grad
+    fn = lib.j2p_fused_grad_striped
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return lib, fn
+
+
+def launch(what: str, fdatas, fistas, pgrads, halos, factor: float,
+           weight: float, row0: int, h_true: int, w_true: int):
+    """Check the inputs and launch the gradient kernel of csrc/grad_step.cu
+    on CUDA tensors: K1 (the whole canvas: row0 0, halos None) or K7 (a
+    band with its halo rows).  Returns (grad, extrap, sums [C + 2])."""
+    f = stack_channels(fdatas)
+    if f.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {f.device}")
+    fi = stack_channels(fistas)
+    C, L, W = f.shape
+    pg_list = [p for p in pgrads if p is not None]
+    pg = stack_channels(pg_list) if pg_list else None
+    hl = [None] * 4 if halos is None else [stack_channels(h) for h in halos]
+    checks = [("fdatas", f, L), ("fistas", fi, L), ("pgrads", pg, L)]
+    checks += [("halos", h, HALO_ROWS) for h in hl]
+    for name, t, rows in checks:
+        if t is None:
+            continue
+        if (t.device != f.device or t.dtype != torch.float32
+                or not t.is_contiguous() or t.shape[1:] != (rows, W)):
+            raise ValueError(
+                f"{what}: {name} must be contiguous float32 [n, {rows}, {W}] "
+                f"on {f.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if (fi.shape[0] != C or len(pgrads) != C or not 1 <= C <= MAX_CHANNELS
+            or any(h is not None and h.shape[0] != C for h in hl)):
+        raise ValueError(f"{what}: channel counts {C}, {fi.shape[0]}, "
+                         f"{len(pgrads)} (1..{MAX_CHANNELS} supported)")
+    if not (row0 >= 0 and h_true >= 1 and 1 <= w_true <= W):
+        raise ValueError(f"{what}: true extent {h_true}x{w_true} of a {W} "
+                         f"wide canvas at row {row0}")
+
+    pidx = [-1] * MAX_CHANNELS
+    k = 0
+    for c, p in enumerate(pgrads):
+        if p is not None:
+            pidx[c] = k
+            k += 1
+    nblocks = -(-L // TILE_H) * -(-W // TILE_W)
+    grad = torch.empty_like(f)
+    extrap = torch.empty_like(f)
+    part = torch.empty((nblocks, C + 2), device=f.device, dtype=torch.float32)
+    out = torch.empty((C + 2,), device=f.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    lib, fn = _launcher()
+    err = fn(f.data_ptr(), fi.data_ptr(),
+             *(None if h is None else h.data_ptr() for h in hl),
+             None if pg is None else pg.data_ptr(), grad.data_ptr(),
+             extrap.data_ptr(), part.data_ptr(), out.data_ptr(), C, L, W,
+             int(row0), int(h_true), int(w_true), float(factor),
+             1.0 / math.sqrt(C), tgv_alpha(C, weight), int(weight != 0.0),
+             *pidx, stream)
+    _build.check(lib, err, what)
+    return grad, extrap, out
 
 
 def fused_grad(fdatas, fistas, pgrads, factor: float, weight: float,
@@ -183,48 +242,13 @@ def fused_grad(fdatas, fistas, pgrads, factor: float, weight: float,
     if f.device.type == "cpu":
         return fused_grad_plain(fdatas, fistas, pgrads, factor, weight,
                                 h_true, w_true)
-    if f.device.type != "cuda":
-        raise ValueError(f"fused_grad: unsupported device {f.device}")
-    fi = stack_channels(fistas)
     C, H, W = f.shape
-    pg_list = [p for p in pgrads if p is not None]
-    pg = stack_channels(pg_list) if pg_list else None
-    for name, t in (("fdatas", f), ("fistas", fi), ("pgrads", pg)):
-        if t is None:
-            continue
-        if (t.device != f.device or t.dtype != torch.float32
-                or not t.is_contiguous() or t.shape[1:] != (H, W)):
-            raise ValueError(
-                f"fused_grad: {name} must be contiguous float32 [n, {H}, "
-                f"{W}] on {f.device}, got {t.dtype} {tuple(t.shape)} "
-                f"on {t.device}")
-    if fi.shape[0] != C or len(pgrads) != C or not 1 <= C <= MAX_CHANNELS:
-        raise ValueError(f"fused_grad: channel counts {C}, {fi.shape[0]}, "
-                         f"{len(pgrads)} (1..{MAX_CHANNELS} supported)")
     HT = H if h_true is None else int(h_true)
     WT = W if w_true is None else int(w_true)
-    if not (1 <= HT <= H and 1 <= WT <= W):
+    if HT > H:
         raise ValueError(f"fused_grad: true extent {HT}x{WT} outside {H}x{W}")
-
-    pidx = [-1] * MAX_CHANNELS
-    k = 0
-    for c, p in enumerate(pgrads):
-        if p is not None:
-            pidx[c] = k
-            k += 1
-    nblocks = -(-H // TILE_H) * -(-W // TILE_W)
-    grad = torch.empty_like(f)
-    extrap = torch.empty_like(f)
-    part = torch.empty((nblocks, C + 2), device=f.device, dtype=torch.float32)
-    out = torch.empty((C + 2,), device=f.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(f.device).cuda_stream
-    lib, fn = _launcher()
-    err = fn(f.data_ptr(), fi.data_ptr(), pg.data_ptr() if pg is not None
-             else None, grad.data_ptr(), extrap.data_ptr(), part.data_ptr(),
-             out.data_ptr(), C, H, W, HT, WT, float(factor),
-             1.0 / math.sqrt(C), (weight / math.sqrt(2.0)) / math.sqrt(C),
-             int(weight != 0.0), *pidx, stream)
-    _build.check(lib, err, "fused_grad")
+    grad, extrap, out = launch("fused_grad", f, fistas, pgrads, None, factor,
+                               weight, 0, HT, WT)
     fused_grad.launches += 1
     return grad, extrap, out[:C], out[C], out[C + 1]
 

@@ -1,4 +1,5 @@
-"""Fused normalized step + box projection: K2 and its lite form K5.
+"""Fused normalized step + box projection: K2, its one-channel form K6 and
+its lite form K5.
 
 Replaces the Pallas kernel
 jpeg2png_tpu/kernels/project_step.py::fused_project_multi
@@ -43,6 +44,16 @@ carry unconstrained boxes lo = -2^39, hi = +2^39 with dq = iq = 0, so
 the clamp is a no-op there and the prob term is exactly zero
 (jpeg2png_tpu/models/solver.py:655-680).
 
+K6, fused_project, replaces the Pallas kernel
+jpeg2png_tpu/kernels/project_step.py::fused_project (`_kernel`,
+`_kernel_adapter`): K2's function for one channel, with the same
+reconstruction form.  The JAX package launches it where its multi-channel
+VMEM gate fails; the port's K2 has no such gate, so K6 takes the
+row-striped solve's one-channel bands instead (-s with --tpu-stripes,
+grayscale).  CUDA version: a kernel of its own in csrc/project_step.cu on
+K2's device functions, with no per-channel table and the footprint a
+compile-time constant; bound by memory like K2.
+
 K5, fused_project_multi_lite, replaces the Pallas kernel
 jpeg2png_tpu/kernels/project_step.py::fused_project_multi_lite
 (`_kernel_multi_lite`, `_stripe_math_lite`): the lite tiers' projection.
@@ -79,30 +90,36 @@ FREE_Q_MIN = 2.0 ** 39
 GAP_BOX = 2.0 ** 39
 
 
+def fused_project_plain(extrap, grad, scale, lo, hi, dq, inv_q, p_alpha_ss,
+                        sy: int, sx: int):
+    """Plain PyTorch version of fused_project, from ops/: K2's arithmetic
+    for one channel."""
+    fmid = extrap - scale * grad
+    fnew, clamped = project_channel_raster(fmid, lo, hi, sy, sx)
+    if p_alpha_ss == 0.0:
+        return fnew, None, torch.zeros((), device=fmid.device)
+    dist, pgrad = prob_term_raster(clamped, dq, inv_q, p_alpha_ss / (sy * sx),
+                                   sy, sx)
+    return fnew, pgrad, dist
+
+
 def fused_project_multi_plain(extraps, grads, scales, los, his, dqs, iqs,
                               pa_sss, samps):
-    """Plain PyTorch version of fused_project_multi, from ops/."""
-    fnews, pgrads, dists = [], [], []
+    """Plain PyTorch version of fused_project_multi: fused_project_plain
+    per channel."""
     e_all = stack_channels(extraps)
     g_all = stack_channels(grads)
-    for c, (sy, sx) in enumerate(samps):
-        fmid = e_all[c] - scales[c] * g_all[c]
-        fnew, clamped = project_channel_raster(fmid, los[c], his[c], sy, sx)
-        fnews.append(fnew)
-        if pa_sss[c] == 0.0:
-            pgrads.append(None)
-            dists.append(torch.zeros((), device=fmid.device))
-            continue
-        dist, pgrad = prob_term_raster(clamped, dqs[c], iqs[c],
-                                       pa_sss[c] / (sy * sx), sy, sx)
-        dists.append(dist)
-        pgrads.append(pgrad)
+    outs = [fused_project_plain(e_all[c], g_all[c], scales[c], los[c], his[c],
+                                dqs[c], iqs[c], pa_sss[c], sy, sx)
+            for c, (sy, sx) in enumerate(samps)]
+    pgrads = [o[1] for o in outs]
     pg = [p for p in pgrads if p is not None]
     if pg:
         # one [P, H, W] tensor, handed out as per-channel views
         it = iter(torch.stack(pg))
         pgrads = [None if p is None else next(it) for p in pgrads]
-    return torch.stack(fnews), pgrads, torch.stack(dists)
+    return (torch.stack([o[0] for o in outs]), pgrads,
+            torch.stack([o[2] for o in outs]))
 
 
 _ARGTYPES = (
@@ -201,6 +218,89 @@ def fused_project_multi(extraps, grads, scales, los, his, dqs, iqs,
 
 
 fused_project_multi.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: one channel (the row-striped solve's one-channel bands)
+# ---------------------------------------------------------------------------
+
+_ONE_ARGTYPES = (
+    [ctypes.c_void_p] * 11           # e, g, scale, fnew, pgrad, part, dist,
+                                     # lo, hi, dq, iq
+    + [ctypes.c_float]               # p_alpha
+    + [ctypes.c_int] * 4             # sy, sx, H, W
+    + [ctypes.c_void_p]              # stream
+)
+
+
+def _one_launcher():
+    lib = _build.library("project_step")
+    fn = lib.j2p_fused_project
+    if fn.argtypes is None:
+        fn.argtypes = _ONE_ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def fused_project(extrap, grad, scale, lo, hi, dq, inv_q, p_alpha_ss,
+                  sy: int, sx: int):
+    """One channel's normalized step + projection (+ prob) (K6).
+
+    Args:
+        extrap, grad: [H, W] float32.
+        scale: step_size / norm, a one-element float32 tensor on the
+            device (a host float on the CPU path).
+        lo, hi: [H/sy, W/sx] float32 clamp bounds.
+        dq, inv_q: [H/sy, W/sx] data*quant and 1/quant, or None when the
+            prob term is off.
+        p_alpha_ss: host float p_alpha * sy * sx (0 = prob off).
+        sy, sx: footprint.
+    Returns:
+        (fnew [H, W], pgrad [H, W] or None, dist — a 0-d tensor, 0 when
+         the prob term is off)
+    """
+    if extrap.device.type == "cpu":
+        return fused_project_plain(extrap, grad, scale, lo, hi, dq, inv_q,
+                                   p_alpha_ss, sy, sx)
+    if extrap.device.type != "cuda":
+        raise ValueError(f"fused_project: unsupported device {extrap.device}")
+    H, W = extrap.shape
+    if H % (8 * sy) or W % (8 * sx) or not (1 <= sy <= 4 and 1 <= sx <= 4):
+        raise ValueError(
+            f"fused_project: canvas {H}x{W} is not whole 8x8 blocks at "
+            f"sampling ({sy}, {sx}) (1..4 supported)")
+    prob = p_alpha_ss != 0.0
+    planes = ((extrap, (H, W)), (grad, (H, W)), (scale, None),
+              (lo, (H // sy, W // sx)), (hi, (H // sy, W // sx)))
+    if prob:
+        planes += ((dq, (H // sy, W // sx)), (inv_q, (H // sy, W // sx)))
+    for t, shape in planes:
+        if (t.device != extrap.device or t.dtype != torch.float32
+                or not t.is_contiguous()
+                or (t.numel() != 1 if shape is None else t.shape != shape)):
+            raise ValueError(
+                "fused_project: inputs must be contiguous float32 on "
+                f"{extrap.device}: [{H}, {W}] pixels, [{H // sy}, {W // sx}] "
+                "coefficient rasters, a one-element scale")
+    fnew = torch.empty_like(extrap)
+    pgrad = torch.empty_like(extrap) if prob else None
+    nblocks = (H // (8 * sy)) * -(-(W // (8 * sx)) // 4)
+    part = torch.empty((nblocks,), device=extrap.device, dtype=torch.float32)
+    dist = torch.empty((1,), device=extrap.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(extrap.device).cuda_stream
+    lib, fn = _one_launcher()
+    err = fn(extrap.data_ptr(), grad.data_ptr(), scale.data_ptr(),
+             fnew.data_ptr(), None if pgrad is None else pgrad.data_ptr(),
+             part.data_ptr(), dist.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+             dq.data_ptr() if prob else None,
+             inv_q.data_ptr() if prob else None,
+             p_alpha_ss / (sy * sx), sy, sx, H, W, stream)
+    _build.check(lib, err, "fused_project")
+    fused_project.launches += 1
+    return fnew, pgrad, dist[0]
+
+
+fused_project.launches = 0
 
 
 def boxes(data_i16, q):

@@ -1,6 +1,26 @@
-"""Lite band gradient (K4): bf16 FISTA difference in, bf16 gradient out.
+"""Band gradients of the row-striped solve: K7 (f32) and K4 (lite).
 
-Replaces the Pallas kernel
+K7, fused_grad_striped, replaces the Pallas kernel
+jpeg2png_tpu/kernels/stripe_grad.py::fused_grad_striped (`_kernel`): K1's
+function (kernels/grad_step.py) on a band of L rows of every channel
+whose first row is global row `row0`,
+
+    e      = f + factor * (f - fista)       (f32, halo rows included)
+    grad   = TV + TGV2 gather of e, zeroed outside the true extent,
+             + the prob pixel gradient
+    extrap = e on the band's rows
+    partials: per-channel sum(grad^2), tv, tv2 of the band
+
+with the two rows the stencil reaches past either band edge taken from
+halo arrays of f and fista [C, HALO_ROWS, W] (the neighbouring bands'
+rows; zeros at the canvas edge), not from the TPU's 8-row DMA tiles.
+CUDA version: K1's kernel (csrc/grad_step.cu), which stages the halo rows
+and keys every row mask on row0 + band row; K1 is the same kernel on the
+whole canvas (row0 0, no halos).  What bounds it on an H100: memory, 4 *
+(3C + P) bytes per pixel as K1.  The f32 striped body
+(parallel/stripes.py) runs it on every band in every iteration.
+
+K4, fused_grad_striped_lite, replaces the Pallas kernel
 jpeg2png_tpu/kernels/stripe_grad.py::fused_grad_striped_lite
 (`_kernel_lite`).  For a band of L rows of every channel, whose first row
 is global row `row0` of the canvas:
@@ -43,14 +63,86 @@ import math
 
 import torch
 
-from jpeg2png_tpu_torch.kernels import _build
+from jpeg2png_tpu_torch.kernels import _build, grad_step
 from jpeg2png_tpu_torch.kernels.grad_step import (
-    MAX_CHANNELS, TILE_H, TILE_W, stack_channels, stencil, tgv_alpha)
+    HALO_ROWS, MAX_CHANNELS, TILE_H, TILE_W, stack_channels, tgv_alpha)
 from jpeg2png_tpu_torch.ops.dct_raster import idct_raster
 from jpeg2png_tpu_torch.ops.resample import upsample_replicate
+from jpeg2png_tpu_torch.ops.tv_halo import band_stencil
 
-HALO_ROWS = 2        # rows of each halo array: the stencil's reach
 LEGAL_SAMPS = (1, 2, 4)
+
+
+def _halo_rows(halos, C, W, device):
+    """The four halo arrays [C, HALO_ROWS, W] as float32 (zeros for None)."""
+    if halos is None:
+        z = torch.zeros((C, HALO_ROWS, W), device=device)
+        return z, z, z, z
+    return tuple(stack_channels(h).to(torch.float32) for h in halos)
+
+
+def _band_sums(grad, g_norm, n2, C, weight):
+    tv = (1.0 / math.sqrt(C)) * torch.sum(g_norm)
+    tv2 = (torch.zeros((), device=grad.device) if n2 is None
+           else tgv_alpha(C, weight) * torch.sum(n2))
+    return torch.sum(grad * grad, dim=(1, 2)), tv, tv2
+
+
+def fused_grad_striped_plain(fdatas, fistas, pgrads, halos, factor, row0,
+                             weight: float, h_true: int, w_true: int):
+    """Plain PyTorch version of fused_grad_striped (same signature): the
+    band stencil of ops/tv_halo.py on the band and its halo rows.  The
+    sums cover all of the band's rows, as the TPU kernel's do (rows past
+    the true extent add 0 on a frozen canvas)."""
+    f = stack_channels(fdatas)
+    fi = stack_channels(fistas)
+    C, L, W = f.shape
+    f_top, f_bot, fi_top, fi_bot = _halo_rows(halos, C, W, f.device)
+    f_ext = torch.cat([f_top, f, f_bot], dim=1)
+    fi_ext = torch.cat([fi_top, fi, fi_bot], dim=1)
+    e = f_ext + float(factor) * (f_ext - fi_ext)
+    grad, g_norm, n2 = band_stencil(e, row0, h_true, w_true, weight)
+    for c, p in enumerate(pgrads):
+        if p is not None:
+            grad[c] = grad[c] + p
+    sumsq, tv, tv2 = _band_sums(grad, g_norm, n2, C, weight)
+    extrap = e[:, HALO_ROWS:HALO_ROWS + L].contiguous()
+    return grad, extrap, sumsq, tv, tv2
+
+
+def fused_grad_striped(fdatas, fistas, pgrads, halos, factor, row0,
+                       weight: float, h_true: int, w_true: int):
+    """Fused extrapolation + TV/TGV2 gradient of one band (K7).
+
+    Args:
+        fdatas, fistas: [C, L, W] float32 band iterates (or per-channel
+            lists of [L, W]).
+        pgrads: per-channel list of [L, W] prob pixel gradients, None for
+            channels whose prob term is off.
+        halos: (f_tops, f_bots, fi_tops, fi_bots), each [C, HALO_ROWS, W]
+            float32: the rows of f and fista just above and below the
+            band (zeros at the canvas edge); None for zeros.
+        factor: host float FISTA extrapolation factor.
+        row0: global canvas row of the band's first row.
+        weight: TGV2 weight.
+        h_true, w_true: the true canvas extent (global).
+    Returns:
+        (grads [C, L, W], extraps [C, L, W], sumsq [C], tv, tv2): the
+        band's own partial sums; the caller all-reduces them.
+    """
+    f = stack_channels(fdatas)
+    if f.device.type == "cpu":
+        return fused_grad_striped_plain(fdatas, fistas, pgrads, halos, factor,
+                                        row0, weight, h_true, w_true)
+    grad, extrap, out = grad_step.launch(
+        "fused_grad_striped", f, fistas, pgrads, halos, factor, weight,
+        int(row0), int(h_true), int(w_true))
+    fused_grad_striped.launches += 1
+    C = f.shape[0]
+    return grad, extrap, out[:C], out[C], out[C + 1]
+
+
+fused_grad_striped.launches = 0
 
 
 def supports(C: int, L: int, W: int, samps) -> bool:
@@ -80,30 +172,17 @@ def fused_grad_striped_lite_plain(fdatas, ds, devqs, halos, factor, row0,
     d = stack_channels(ds).to(torch.float32)
     C, L, W = f.shape
     HT, WT = _extent(extents, h_true, w_true)
-    if halos is None:
-        zf = torch.zeros((C, HALO_ROWS, W), device=f.device)
-        f_top = f_bot = d_top = d_bot = zf
-    else:
-        f_top, f_bot, d_top, d_bot = (
-            stack_channels(h).to(torch.float32) for h in halos)
+    f_top, f_bot, d_top, d_bot = _halo_rows(halos, C, W, f.device)
     e = (torch.cat([f_top, f, f_bot], dim=1)
          + float(factor) * torch.cat([d_top, d, d_bot], dim=1))
-    rows = (int(row0) - HALO_ROWS
-            + torch.arange(L + 2 * HALO_ROWS, device=f.device))[:, None]
-    cols = torch.arange(W, device=f.device)[None, :]
-    grad, g_norm, n2 = stencil(e, rows, cols, HT, WT, weight)
-    own = slice(HALO_ROWS, HALO_ROWS + L)
-    grad = torch.where((rows[own] < HT) & (cols < WT), grad[:, own], 0.0)
-    tv = (1.0 / math.sqrt(C)) * torch.sum(g_norm[own])
-    tv2 = (torch.zeros((), device=f.device) if n2 is None
-           else tgv_alpha(C, weight) * torch.sum(n2[own]))
+    grad, g_norm, n2 = band_stencil(e, row0, HT, WT, weight)
     it = iter(devqs)
     for c, (sy, sx) in enumerate(samps):
         if p_alpha_sss[c] != 0.0:
             pa = p_alpha_sss[c] / (sy * sx)
             grad[c] = grad[c] + pa * upsample_replicate(
                 idct_raster(next(it).to(torch.float32)), sy, sx)
-    sumsq = torch.sum(grad * grad, dim=(1, 2))
+    sumsq, tv, tv2 = _band_sums(grad, g_norm, n2, C, weight)
     return grad.to(torch.bfloat16), sumsq, tv, tv2
 
 

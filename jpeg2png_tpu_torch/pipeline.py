@@ -2,14 +2,16 @@
 
 The equivalent of decode_file (reference: jpeg2png.c:120-172): read
 coefficients on the host, run the solver on the device (joint or
-per-channel), re-add the +128 luma offset (jpeg2png.c:156-159), convert
-YCbCr -> RGB on the device with the reference's exact constants and
-clamp-then-scale order (png.c:44-47), and pack a PNG on the host.
+per-channel, whole or striped in row bands over several devices), re-add
+the +128 luma offset (jpeg2png.c:156-159), convert YCbCr -> RGB on the
+device with the reference's exact constants and clamp-then-scale order
+(png.c:44-47), and pack a PNG on the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Optional
 
 import numpy as np
@@ -22,6 +24,9 @@ from jpeg2png_tpu_torch.models.solver import (
     initial_decode, solve_joint, solve_joint_chunked)
 from jpeg2png_tpu_torch.ops.color import gray_packed, ycbcr_to_rgb_packed
 from jpeg2png_tpu_torch.ops.resample import upsample_nearest_clamped
+from jpeg2png_tpu_torch.parallel import distributed
+from jpeg2png_tpu_torch.parallel.mesh import available_devices, stripe_mesh
+from jpeg2png_tpu_torch.parallel.stripes import solve_striped
 from jpeg2png_tpu_torch.utils.config import SolverConfig
 from jpeg2png_tpu_torch.utils.logger import ConvergenceLogger
 from jpeg2png_tpu_torch.utils.progress import ProgressBar
@@ -42,10 +47,36 @@ def _pack(channels, img: JpegImage, bits: int) -> np.ndarray:
                                bits)
 
 
+def striped_mesh_for(stripes: int, device):
+    """The mesh a `--tpu-stripes N` decode runs on, or None for the
+    single-device solver.  N bands go one per device (one per process in a
+    multi-process run; the CPU holds any number); N beyond the devices
+    clamps to them with a warning on rank 0 (the mesh itself refuses to
+    truncate), and to the single-device solver when one is left."""
+    if stripes <= 1:
+        return None
+    device = resolve_device(device)
+    avail = available_devices(device)
+    if stripes > avail:
+        if distributed.is_primary():
+            what = (f"striping over {avail}" if avail > 1 else
+                    "falling back to the single-device solver")
+            print(f"jpeg2png_tpu_torch: --tpu-stripes {stripes} exceeds "
+                  f"the {avail} available device(s); {what}",
+                  file=sys.stderr)
+        stripes = avail
+    if stripes <= 1:
+        return None
+    if device.type == "cpu" and not distributed.is_multi_process():
+        return stripe_mesh(stripes, [device] * stripes)
+    return stripe_mesh(stripes)
+
+
 def smooth_decode(img: JpegImage, cfg: SolverConfig,
                   progress: Optional[ProgressBar] = None,
                   bits: int = 8, metrics_stream=None,
-                  device="cuda", tier=None) -> DecodeResult:
+                  device="cuda", tier=None, stripes: int = 0,
+                  mesh=None) -> DecodeResult:
     """Solve and convert one parsed JPEG to output pixels.
 
     metrics_stream: optional callable (channel, start_iteration,
@@ -55,42 +86,63 @@ def smooth_decode(img: JpegImage, cfg: SolverConfig,
     (compute.c:449-452, logger.c:20).  Chunked and one-shot solves run
     the same kernels on the same carry and agree exactly.  `tier` forces
     a solver tier (models/solver.py TIERS; None: tier_rule).
+
+    stripes > 1 solves the image in that many row bands
+    (parallel/stripes.py; striped_mesh_for places them), or `mesh`, a
+    parallel.mesh.stripe_mesh, gives the bands as they are (e.g. four
+    bands on one card).  With -s each channel is a one-channel striped
+    solve of its own.
     """
     require_supported(img)
     if cfg.dtype != "float32":
         raise ValueError(f"unsupported solver dtype {cfg.dtype!r} "
                          "(the kernels are float32)")
     device = resolve_device(device)
+    if mesh is None:
+        mesh = striped_mesh_for(stripes, device)
     datas = [p.data for p in img.planes]
     quants = [p.quant for p in img.planes]
     samps = [(p.h_samp, p.w_samp) for p in img.planes]
     C = img.nchannel
-    live = progress is not None or metrics_stream is not None
+    # the chunking decision must be the same on every process: a striped
+    # chunk is a schedule of collectives, and observers (bar, CSV) live on
+    # rank 0 only, so in a multi-process run every rank chunks
+    live = (progress is not None or metrics_stream is not None
+            or distributed.is_multi_process())
 
     def solve(ds, qs, ss, w, pw, iters, channel_id):
-        if not (live and iters > 0):
+        on_chunk = None
+        if live and iters > 0:
+            def on_chunk(done, chunk_metrics):
+                if progress:
+                    progress.increment(chunk_metrics.shape[0])
+                if metrics_stream:
+                    metrics_stream(channel_id, done - chunk_metrics.shape[0],
+                                   chunk_metrics)
+        # short solves (<= 16 iterations) tick per iteration, like the
+        # reference's bar (progressbar.c:37-47)
+        chunk = 1 if iters <= 16 else None
+        if mesh is not None:
+            fd, metrics = solve_striped(
+                ds, qs, ss, w, pw, iters, mesh, cfg.simd_compat_logging,
+                on_chunk=on_chunk, chunk=chunk)
+            # a multi-process result is sharded by rows: gathered once,
+            # here at the end
+            fd = distributed.gather_output(fd)
+        elif on_chunk is not None:
+            fd, metrics = solve_joint_chunked(
+                ds, qs, ss, w, pw, iters, on_chunk=on_chunk, chunk=chunk,
+                simd_compat_logging=cfg.simd_compat_logging, device=device,
+                tier=tier)
+        else:
             fd, metrics = solve_joint(ds, qs, ss, w, pw, iters,
                                       cfg.simd_compat_logging, device, tier)
+        if on_chunk is None:
             if progress:
                 progress.increment(iters)
             if metrics_stream:
                 metrics_stream(channel_id, 0, metrics)
-            return fd, metrics
-
-        def on_chunk(done, chunk_metrics):
-            if progress:
-                progress.increment(chunk_metrics.shape[0])
-            if metrics_stream:
-                metrics_stream(channel_id, done - chunk_metrics.shape[0],
-                               chunk_metrics)
-
-        # short solves (<= 16 iterations) tick per iteration, like the
-        # reference's bar (progressbar.c:37-47)
-        return solve_joint_chunked(
-            ds, qs, ss, w, pw, iters, on_chunk=on_chunk,
-            chunk=1 if iters <= 16 else None,
-            simd_compat_logging=cfg.simd_compat_logging, device=device,
-            tier=tier)
+        return fd, metrics
 
     metrics_out = {}
     if not cfg.separate_components or C == 1:
@@ -120,19 +172,31 @@ def decode_file(
     progress: Optional[ProgressBar] = None,
     device="cuda",
     tier=None,
+    stripes: int = 0,
+    mesh=None,
 ) -> DecodeResult:
     """Full per-file pipeline (jpeg2png.c:120-172).  CSV rows stream
     DURING the solve (chunked execution), like the reference's in-loop
-    logger (logger.c:20)."""
+    logger (logger.c:20).  In a multi-process run every process decodes
+    and rank 0 alone writes the file and the CSV rows."""
     img = read_jpeg(infile)
+    primary = distributed.is_primary()
     stream = None
-    if logger is not None:
+    if logger is not None and primary:
         def stream(channel, start, metrics):
             logger.log_metrics(infile, channel, metrics,
                                start_iteration=start)
     result = smooth_decode(img, cfg, progress, bits, metrics_stream=stream,
-                           device=device, tier=tier)
-    write_png(outfile, result.pixels, bits)
+                           device=device, tier=tier, stripes=stripes,
+                           mesh=mesh)
+    # the barrier keeps the other ranks from running ahead of the write; in
+    # a finally, so that a failed write on rank 0 surfaces there instead of
+    # stranding the others at the barrier
+    try:
+        if primary:
+            write_png(outfile, result.pixels, bits)
+    finally:
+        distributed.barrier()
     return result
 
 

@@ -1,0 +1,128 @@
+"""The port's multi-process striped solve: two gloo processes on localhost.
+
+Each process joins the group through
+jpeg2png_tpu_torch.parallel.distributed.initialize (the JPEG2PNG_*
+environment variables), holds one band, and runs solve_striped, whose halo
+exchanges and all-reduce cross the process boundary, then gather_output
+and a `--tpu-stripes 2 --tpu-distributed` CLI decode.  The test holds the
+gathered result against the same solve with both bands in this process,
+and checks that only rank 0 writes the PNG and the CSV.  Each process has
+a time limit of its own, so a hung collective fails the test.
+"""
+
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from PIL import Image  # noqa: E402
+
+from test_torch_solver import synth_channels  # noqa: E402
+
+LAYOUT = [(13, 16, 1, 1), (7, 8, 2, 2), (7, 8, 2, 2)]   # 112 x 128, 4:2:0
+
+_WORKER = textwrap.dedent("""
+    import os, sys
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    sys.path.insert(0, "tests")
+    from test_torch_solver import synth_channels
+    from jpeg2png_tpu_torch.parallel import distributed
+    from jpeg2png_tpu_torch.parallel.mesh import stripe_mesh
+    from jpeg2png_tpu_torch.parallel.stripes import solve_striped
+
+    rank, world = distributed.initialize(device="cpu")
+    assert world == 2 and distributed.is_multi_process()
+    assert distributed.is_primary() == (rank == 0)
+    assert distributed.initialize(device="cpu") == (rank, 2)   # idempotent
+    mesh = stripe_mesh()
+    assert mesh.n == 2 and mesh.first == rank, mesh
+    datas, quants, samps = synth_channels(np.random.default_rng(3),
+                                          %(layout)r)
+    fd, m = solve_striped(datas, quants, samps, 0.3, [0.001] * 3, 3, mesh)
+    assert mesh.comm.counts == {"halo": 6, "all_reduce": 3}, mesh.comm.counts
+    # this rank's rows of the 112-row canvas: bands of 64 rows
+    assert fd.shape == (3, 64 if rank == 0 else 48, 128), fd.shape
+    full = distributed.gather_output(fd)
+    assert distributed.gather_output(m) is m      # numpy passes through
+    out = os.environ["JPEG2PNG_TEST_TMP"]
+    np.savez(os.path.join(out, f"solve{rank}.npz"), fd=full.numpy(), m=m)
+
+    from jpeg2png_tpu_torch.cli import main
+    src = os.path.join("tests", "fixtures", "lineart64_q20_420.jpg")
+    rc = main([src, "-o", os.path.join(out, f"cli{rank}.png"), "-i", "2",
+               "-q", "-c", os.path.join(out, f"cli{rank}.csv"),
+               "--tpu-stripes", "2", "--tpu-distributed", "--device", "cpu"])
+    assert rc == 0, rc
+    distributed.barrier()
+    print(f"rank {rank}: ok", flush=True)
+""") % {"layout": LAYOUT}
+
+
+def test_torch_two_process_striped_solve(tmp_path, fixtures_dir):
+    from jpeg2png_tpu_torch.cli import main
+    from jpeg2png_tpu_torch.parallel.mesh import stripe_mesh
+    from jpeg2png_tpu_torch.parallel.stripes import solve_striped
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    worker = tmp_path / "worker.py"
+    worker.write_text(_WORKER)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = []
+    for i in range(2):
+        env = dict(os.environ)
+        env.update({
+            "JPEG2PNG_COORDINATOR": f"localhost:{port}",
+            "JPEG2PNG_NUM_PROCESSES": "2",
+            "JPEG2PNG_PROCESS_ID": str(i),
+            "JPEG2PNG_TEST_TMP": str(tmp_path),
+            "PYTHONPATH": repo + os.pathsep + env.get("PYTHONPATH", ""),
+        })
+        procs.append(subprocess.Popen(
+            [sys.executable, str(worker)], env=env, cwd=repo,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        pytest.fail("the two-process solve hung:\n" + "\n".join(outs))
+    for i, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {i} failed:\n{outs[i]}"
+        assert f"rank {i}: ok" in outs[i]
+
+    # the same solve with both bands in this process: the halo rows and
+    # the two-term all-reduce are the same numbers, so the results agree
+    # to rounding (rtol 1e-6)
+    datas, quants, samps = synth_channels(np.random.default_rng(3), LAYOUT)
+    fd_1, m_1 = solve_striped(datas, quants, samps, 0.3, [0.001] * 3, 3,
+                              stripe_mesh(2, ["cpu"] * 2))
+    for r in range(2):
+        got = np.load(tmp_path / f"solve{r}.npz")
+        assert got["fd"].shape == (3, 112, 128)
+        np.testing.assert_allclose(got["fd"], fd_1.numpy(), rtol=1e-6,
+                                   atol=1e-4)
+        np.testing.assert_allclose(got["m"], m_1, rtol=1e-6)
+
+    # rank 0 alone wrote the PNG and the CSV; the pixels are the
+    # one-process two-band decode's
+    assert (tmp_path / "cli0.png").exists() and (tmp_path / "cli0.csv").exists()
+    assert not (tmp_path / "cli1.png").exists()
+    assert not (tmp_path / "cli1.csv").exists()
+    ref = tmp_path / "ref.png"
+    assert main([str(fixtures_dir / "lineart64_q20_420.jpg"), "-o", str(ref),
+                 "-i", "2", "-q", "--tpu-stripes", "2", "--device",
+                 "cpu"]) == 0
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "cli0.png")),
+                                  np.asarray(Image.open(ref)))

@@ -43,6 +43,9 @@ def test_torch_port_import_loads_no_jax():
         "import jpeg2png_tpu_torch.models.solver, jpeg2png_tpu_torch.runner\n"
         "import jpeg2png_tpu_torch.kernels.iter_step\n"
         "import jpeg2png_tpu_torch.utils.corpus\n"
+        "import jpeg2png_tpu_torch.parallel.stripes\n"
+        "import jpeg2png_tpu_torch.parallel.distributed\n"
+        "import jpeg2png_tpu_torch.parallel.mesh\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'jpeg2png_tpu'))\n"
         "print(','.join(bad))\n")
@@ -80,6 +83,9 @@ def test_torch_entry_points_refuse_without_card(no_card, fixtures_dir,
         lambda: plain_decode(img),
         lambda: decode_file(str(src), str(tmp_path / "o.png"), cfg),
         lambda: main([str(src), "-o", str(tmp_path / "c.png"), "-q"]),
+        lambda: smooth_decode(img, cfg, stripes=4),
+        lambda: main([str(src), "-o", str(tmp_path / "c.png"), "-q",
+                      "--tpu-stripes", "4"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no.*CUDA|CUDA.*none"):
@@ -104,8 +110,8 @@ def _cuda_looking(shape, dtype=torch.float32):
 
 def test_torch_wrappers_never_run_plain_on_cuda_tensors(monkeypatch, no_card):
     """Every kernel wrapper launches its kernel or raises for a CUDA
-    tensor: K1, K2, K3 (f32 and lite), K4 and K5; their plain versions
-    run only for CPU tensors."""
+    tensor: K1, K2, K3 (f32 and lite), K4, K5, K6 and K7; their plain
+    versions run only for CPU tensors."""
     from jpeg2png_tpu_torch.kernels import (grad_step, iter_step,
                                             project_step, stripe_grad)
 
@@ -119,6 +125,8 @@ def test_torch_wrappers_never_run_plain_on_cuda_tensors(monkeypatch, no_card):
                       (project_step, "fused_project_multi_plain"),
                       (project_step, "fused_project_multi_lite_plain"),
                       (stripe_grad, "fused_grad_striped_lite_plain"),
+                      (stripe_grad, "fused_grad_striped_plain"),
+                      (project_step, "fused_project_plain"),
                       (iter_step, "fused_solve_plain"),
                       (iter_step, "fused_solve_lite_plain")):
         monkeypatch.setattr(mod, name, plain_called)
@@ -134,6 +142,11 @@ def test_torch_wrappers_never_run_plain_on_cuda_tensors(monkeypatch, no_card):
             [0.0] * 3, [(1, 1), (2, 2), (2, 2)]),
         lambda: stripe_grad.fused_grad_striped_lite(
             f1, d, [], None, 0.5, 0, 0.3, [(1, 1)], [0.0], 16, 16, 32),
+        lambda: stripe_grad.fused_grad_striped(
+            f, f, [None] * 3, (_cuda_looking((3, 2, 32)),) * 4, 0.5, 16, 0.3,
+            40, 32),
+        lambda: project_step.fused_project(
+            q, q, _cuda_looking((1,)), q, q, None, None, 0.0, 1, 1),
         lambda: project_step.fused_project_multi_lite(
             f1, d, d, 0.5, _cuda_looking((1,)), [q.to(torch.int16)], [q],
             [0.0], [(1, 1)]),
@@ -153,8 +166,9 @@ def test_torch_wrappers_never_run_plain_on_cuda_tensors(monkeypatch, no_card):
         assert not isinstance(e.value, PlainCalled)
     for fn in (grad_step.fused_grad, project_step.fused_project_multi,
                project_step.fused_project_multi_lite,
-               stripe_grad.fused_grad_striped_lite, iter_step.fused_solve,
-               iter_step.fused_solve_lite):
+               stripe_grad.fused_grad_striped_lite,
+               stripe_grad.fused_grad_striped, project_step.fused_project,
+               iter_step.fused_solve, iter_step.fused_solve_lite):
         assert fn.launches == 0
 
 

@@ -1,0 +1,224 @@
+"""Time the PyTorch port's row-striped solve across several CUDA cards.
+
+    python3 tools/torch_striped_cards.py [--cards 4]
+    python3 tools/torch_striped_cards.py --device cpu --cards 4 --tile 1 \\
+        --jpeg tests/fixtures/photo600x400_q20_420.jpg --iterations 3
+
+The problem is chip_smoke.py's: the 3072x2048 smoke JPEG's coefficient
+blocks tiled --tile x --tile (4: 12288 x 8192, 100.7 MP), default flags
+(-w 0.3 -p 0.001), --iterations (50).  It is solved
+
+  * on the two tier over the whole canvas, on one device (the reference);
+  * in --cards bands on one device (as chip_smoke.py runs it);
+  * in --cards bands, one per card, in this process
+    (parallel.mesh.stripe_mesh: halo rows copied between cards, the
+    all-reduce summed on card 0);
+  * in --cards processes on localhost, one band each
+    (parallel.distributed: NCCL on cards, gloo with --device cpu).
+
+Each striped result is held against the reference (PSNR > 45 dB on the
+8-bit RGB pixels) and its collectives counted (3 per iteration); each
+solve is timed on the device clock (CUDA events around the second of two
+runs, set-up included: every process builds the whole problem; the host
+clock with --device cpu).  Prints the first card's name and power limit,
+then one JSON line of the results; exits non-zero on any miss.  Needs
+--cards cards on one host.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import pathlib
+import socket
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+SMOKE_JPEG = ROOT / "tests" / "fixtures" / "torch_smoke_art3072x2048_q30_420.jpg"
+
+
+def _problem(args):
+    import numpy as np
+
+    from jpeg2png_tpu_torch.io import read_jpeg
+
+    img = read_jpeg(args.jpeg)
+    datas = [np.tile(p.data, (args.tile, args.tile, 1, 1)) for p in img.planes]
+    return (datas, [p.quant for p in img.planes],
+            [(p.h_samp, p.w_samp) for p in img.planes], 0.3,
+            [0.001] * len(img.planes), args.iterations)
+
+
+def _timed(fn, device):
+    """(result, ms): the second of two runs, on the device clock."""
+    import torch
+
+    fn()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _rgb8(f):
+    import torch
+
+    y, cb, cr = f[0] + 128.0, f[1], f[2]
+    rgb = torch.stack([y + 1.402 * cr, y - 0.34414 * cb - 0.71414 * cr,
+                       y + 1.772 * cb]).clamp(0.0, 255.0)
+    return rgb.to(torch.int32).to(torch.float64)
+
+
+def _psnr(a, b) -> float:
+    """PSNR of the 8-bit RGB pixels; equal pixels read as 999 dB."""
+    a, b = _rgb8(a), _rgb8(b.to(a.device))
+    mse = float(((a - b) ** 2).mean())
+    return 999.0 if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SystemExit(f"torch_striped_cards: {msg}")
+
+
+def worker(args) -> None:
+    """One process of the multi-process run: one band; rank 0 solves the
+    reference on its own device and writes the results."""
+    import torch
+
+    from jpeg2png_tpu_torch.models import solver
+    from jpeg2png_tpu_torch.parallel import distributed
+    from jpeg2png_tpu_torch.parallel.mesh import stripe_mesh
+    from jpeg2png_tpu_torch.parallel.stripes import solve_striped
+
+    rank, world = distributed.initialize(device=args.device)
+    device = distributed.band_device()
+    problem = _problem(args)
+    mesh = stripe_mesh()
+    (fd, _), ms = _timed(lambda: solve_striped(*problem, mesh), device)
+    counts = dict(mesh.comm.counts)
+    fd = distributed.gather_output(fd)
+    worst = torch.tensor([ms], dtype=torch.float64, device=device)
+    torch.distributed.all_reduce(worst, op=torch.distributed.ReduceOp.MAX)
+    if distributed.is_primary():
+        ref, _ = solver.solve_joint(*problem, device=device, tier="two")
+        out = {"ms": ms, "ms_slowest_rank": float(worst), "counts": counts,
+               "psnr_vs_two": _psnr(fd, ref), "world": world}
+        pathlib.Path(os.environ["STRIPED_CARDS_OUT"]).write_text(
+            json.dumps(out))
+    distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def _multi_process(args) -> dict:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = ROOT / "jpeg2png_tpu_torch" / "_build" / "striped_cards.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    argv = [sys.executable, __file__, "--worker", "--device", args.device,
+            "--jpeg", str(args.jpeg), "--tile", str(args.tile),
+            "--iterations", str(args.iterations)]
+    procs = []
+    for i in range(args.cards):
+        env = dict(os.environ, JPEG2PNG_COORDINATOR=f"localhost:{port}",
+                   JPEG2PNG_NUM_PROCESSES=str(args.cards),
+                   JPEG2PNG_PROCESS_ID=str(i), STRIPED_CARDS_OUT=str(out))
+        procs.append(subprocess.Popen(argv, env=env, cwd=ROOT))
+    try:
+        rcs = [p.wait(timeout=args.timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    _check(rcs == [0] * args.cards, f"worker exit codes {rcs}")
+    return json.loads(out.read_text())
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--cards", type=int, default=4)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--jpeg", default=str(SMOKE_JPEG))
+    p.add_argument("--tile", type=int, default=4)
+    p.add_argument("--iterations", type=int, default=50)
+    p.add_argument("--timeout", type=int, default=600,
+                   help="seconds each worker process may take")
+    p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    args = p.parse_args()
+    if args.worker:
+        worker(args)
+        return 0
+
+    import torch
+
+    from jpeg2png_tpu_torch import resolve_device
+    from jpeg2png_tpu_torch.models import solver
+    from jpeg2png_tpu_torch.parallel.mesh import stripe_mesh
+    from jpeg2png_tpu_torch.parallel.stripes import solve_striped
+
+    device = resolve_device(args.device)        # no card: RuntimeError
+    n, it = args.cards, args.iterations
+    card = "cpu"
+    if device.type == "cuda":
+        _check(torch.cuda.device_count() >= n,
+               f"{n} cards asked for, {torch.cuda.device_count()} present")
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()[0]
+        device = torch.device("cuda", 0)
+    print(card, flush=True)
+    problem = _problem(args)
+    (ref, _), ms_two = _timed(
+        lambda: solver.solve_joint(*problem, device=device, tier="two"),
+        device)
+    runs = {"two": {"ms": ms_two}}
+    for label, devices in (("bands on one device", [device] * n),
+                           ("one band per card", None)):
+        if devices is None and device.type != "cuda":
+            continue
+        mesh = stripe_mesh(n, devices)
+        (fd, _), ms = _timed(lambda: solve_striped(*problem, mesh), device)
+        runs[label] = {"ms": ms, "counts": dict(mesh.comm.counts),
+                       "psnr_vs_two": _psnr(fd, ref)}
+        del fd
+    del ref
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    runs["one band per process"] = _multi_process(args)
+    for label, r in runs.items():
+        if label == "two":
+            continue
+        # two solves (warm, timed) on each mesh: 3 collectives per
+        # iteration each
+        want = {"halo": 4 * it, "all_reduce": 2 * it}
+        _check(r["counts"] == want, f"{label}: collectives {r['counts']}, "
+                                    f"expected {want}")
+        _check(r["psnr_vs_two"] > 45.0,
+               f"{label}: PSNR {r['psnr_vs_two']:.2f} <= 45 dB")
+    H, W = solver.canvas_shape(solver._geometry(problem[0], problem[2]))
+    print(json.dumps({"card": card, "cards": n, "canvas": [H, W],
+                      "mp": H * W / 1e6, "iterations": it,
+                      "ms_per_iteration": {k: v["ms"] / it
+                                           for k, v in runs.items()},
+                      "runs": runs}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
