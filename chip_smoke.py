@@ -22,7 +22,10 @@ non-zero exit and no result line):
      padding, the 3072x2048 canvas), bf16 outputs within one bf16 step;
      K3's lite mode on K3's random-data cases, every iteration of a
      3-iteration launch against the plain version's step from the
-     kernel's own state;
+     kernel's own state; K1 and K7 where their row-marching grid has
+     edges (bands of 8 and 16 rows, 8 and 328 columns, heights off the
+     segment, C = 4, a segment boundary on h_true - 1), and the Python
+     mirror of that grid against the library's;
   5. goldens: three fixtures decoded at -i 50 through the pipeline must
      reach PSNR > 45 dB against the reference binary's PNGs, and the
      photo512 -i 5 CSV must agree with the reference on iterations 0-1,
@@ -32,8 +35,10 @@ non-zero exit and no result line):
      counters read around it, the same decode forced to two-lite (50
      launches each of K4 and K5, nothing else), the solve forced through
      every tier (launch counts, PSNR against the two tier and against the
-     plain path); per-kernel times beside their bounds and the plain
-     versions' times; the tier sweep: every tier at 0.26, 1.23, 3.15,
+     plain path); per-kernel times beside their bounds (the bytes each
+     launch must move, whatever its grid) and the plain versions' times,
+     K1's split between its gradient kernel and its reduction
+     (torch.profiler); the tier sweep: every tier at 0.26, 1.23, 3.15,
      6.29 and 8.0 MP (the numbers that set the rule's gates);
   7. serving: cli.main --tpu-batch on the 48-file corpus
      (tests/fixtures/torch_serving), with the committed gates and with
@@ -52,8 +57,8 @@ non-zero exit and no result line):
      the pipeline striped, -s striped (K7 = K6 = 600), the 100.7 MP
      problem (the smoke JPEG's blocks tiled 4 x 4, 12288 x 8192) against
      the two tier with times and peak memory, -s on it (K7 = K6 = 600),
-     K7's and K6's times at its band shapes, and cli --tpu-stripes 4 on
-     one card (the clamp warning);
+     K7's, K6's and K2's times at its band shapes (K7's split as K1's),
+     and cli --tpu-stripes 4 on one card (the clamp warning);
   9. a JSON line of end-to-end numbers, one JSON line of kernel records,
      then the device line last.
 
@@ -244,6 +249,39 @@ def _k1_case(rng, C, H, W, weight, prob, h_true=None, w_true=None):
         f"{h_true or H}x{w_true or W}: grad err {g_err:.3g} (tol "
         f"{g_tol:.3g}), extrap err {e_err:.3g}, sums ok")
     return g_err
+
+
+def k1_edge_cases(rng):
+    """The CPU mirror of K1's grid (grad_step.partial_rows) against the
+    library's, then K1 where the row-marching grid has edges: canvases of
+    8 and 16 rows (shorter than or one segment), 8 columns, a width that is no multiple
+    of the strip and a height that is no multiple of the segment, C = 4
+    over several segments and strips, a true extent ending inside the
+    first segment, and the segment boundary on h_true - 1 (as the last row
+    of a segment and as the first)."""
+    from jpeg2png_tpu_torch.kernels import grad_step
+
+    seg = grad_step.segment_rows(3, True, 64, 96)
+    require(seg < 64, f"K1 edge cases: 64 rows make one segment ({seg})")
+    # the CPU mirror of the grid against the library: one strip of 2^24
+    # rows splits into as many segments as blocks are resident
+    lib, _ = grad_step._launcher()
+    slots = lib.j2p_grad_partial_rows(3, 1, 1 << 24, 8)
+    for L, W in ((2048, 3072), (2048, 12288), (100, 300), (8, 8)):
+        rows = lib.j2p_grad_partial_rows(3, 1, L, W)
+        require(rows == grad_step.partial_rows(L, W, slots),
+                f"grid of {L}x{W}: the library's {rows} partial rows, the "
+                f"mirror's {grad_step.partial_rows(L, W, slots)}")
+    return [
+        _k1_case(rng, 3, 8, 64, 0.3, [True] * 3),
+        _k1_case(rng, 3, 16, 128, 0.3, [True, False, True]),
+        _k1_case(rng, 2, 40, 8, 0.3, [True, False]),
+        _k1_case(rng, 3, 104, 328, 0.3, [True] * 3, h_true=99, w_true=325),
+        _k1_case(rng, 4, 72, 264, 0.3, [True] * 4, h_true=70),
+        _k1_case(rng, 3, 64, 96, 0.3, [True] * 3, h_true=5),
+        _k1_case(rng, 3, 64, 96, 0.3, [True] * 3, h_true=seg),
+        _k1_case(rng, 3, 64, 96, 0.3, [False] * 3, h_true=seg + 1),
+    ]
 
 
 def _pgrad_tol(ref_pg, pa, dqs) -> float:
@@ -575,6 +613,7 @@ def phase_kernels(corpus):
         _k1_case(rng, 2, 24, 40, 0.5, [False, True]),
         _k1_case(rng, 4, 24, 40, 0.3, [True] * 4),
     ]
+    k1 += k1_edge_cases(rng)
     k2 = [
         _k2_case(rng, 2048, 3072, [(1, 1), (2, 2), (2, 2)], [True] * 3),
         _k2_case(rng, 2048, 3072, [(1, 1), (2, 2), (2, 2)], [False] * 3),
@@ -1144,8 +1183,48 @@ def phase_goldens():
                 f"goldens ({tier} tier)")
 
 
-def _bytes_k1(C, P, H, W, nblocks):
-    return 4 * H * W * (2 * C + P) + 4 * H * W * 2 * C + 4 * nblocks * (C + 2)
+def _bytes_k1(C, P, H, W, halo=False):
+    """Bytes of one K1 / K7 launch, whatever the kernel's grid: f, fista
+    and the prob gradient in, grad and extrap out, the C + 2 sums out, and
+    for a band (K7) its four halo arrays [C, 2, W] in."""
+    return (4 * H * W * (2 * C + P) + 4 * H * W * 2 * C + 4 * (C + 2)
+            + (4 * 4 * C * 2 * W if halo else 0))
+
+
+def _grad_split(fn, a, reps=20):
+    """Device ms per launch of the K1 / K7 wrapper's two kernels, the
+    gradient kernel and the fixed-order reduction of its partial sums,
+    from torch.profiler's device times per kernel (None: not measured, the
+    profiler recorded no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    saved_n = getattr(fn, "launches", 0)
+    fn(*a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*a)
+        torch.cuda.synchronize()
+    if hasattr(fn, "launches"):
+        fn.launches = saved_n     # timing launches are not path ones
+    split = {}
+    for evt in prof.key_averages():
+        t = getattr(evt, "device_time_total", None)
+        if t is None:
+            t = getattr(evt, "cuda_time_total", 0.0)
+        for key in ("grad_kernel", "reduce_columns"):
+            if key in evt.key:
+                split[key] = split.get(key, 0.0) + t / 1e3 / reps
+    return split if split.get("grad_kernel") else None
+
+
+def _split_msg(name, split, card):
+    if split is None:
+        return f"  {name} split: not measured (no device time recorded)"
+    return (f"  {name} split (torch.profiler): gradient kernel "
+            f"{split['grad_kernel']:.4f} ms, reduction "
+            f"{split.get('reduce_columns', 0.0):.4f} ms per launch  [{card}]")
 
 
 def _bytes_k2(C, P, H, W, samps, prob):
@@ -1427,9 +1506,8 @@ def phase_main_path(card: str, errs):
     k5_args = (lcarry[0], lcarry[1], lgrads, 0.5, lscale, prob.dats_c,
                prob.qs_c, prob.pa_sss, prob.samps)
     C, P, prob_on = 3, 3, [True] * 3
-    nblocks = -(-H // grad_step.TILE_H) * -(-W // grad_step.TILE_W)
     bounds = {
-        "fused_grad": (_bytes_k1(C, P, H, W, nblocks),
+        "fused_grad": (_bytes_k1(C, P, H, W),
                        K1_OPS_PER_CHANNEL_PIXEL * C * H * W),
         "fused_project_multi": (
             _bytes_k2(C, P, H, W, prob.samps, prob_on),
@@ -1460,6 +1538,8 @@ def phase_main_path(card: str, errs):
         ms = cuda_ms(lambda: fn(*a), reps)
         fn.launches = saved_n         # timing launches are not path ones
         timed[name] = (ms, cuda_ms(lambda: plain(*a), plain_reps))
+    k1_split = _grad_split(grad_step.fused_grad, k1_args)
+    log(_split_msg("fused_grad", k1_split, card))
     sources = {
         "fused_grad": ("grad_step.cu", "grad_step.py:388"),
         "fused_project_multi": ("project_step.cu", "project_step.py:528"),
@@ -1498,6 +1578,7 @@ def phase_main_path(card: str, errs):
     return records, {"tier": tier0, "launches": counts,
                      "total_s": total_s, "two_lite_decode_s": lite_s,
                      "setup_ms": setup_ms, "jpeg_read_s": read_s,
+                     "k1_split_ms": k1_split,
                      "png_encode_s": png_s,
                      "psnr_vs_two": {t: p if math.isfinite(p) else None
                                      for t, p in p_tiers.items()},
@@ -1763,6 +1844,38 @@ def _k6_case(rng, H, W, sy, sx, prob, gap_rows=0, pad_rows=0):
     return f_err
 
 
+def k7_edge_cases(rng):
+    """K7 where the row-marching grid has edges: bands of 8 and 16 rows,
+    40 rows (no multiple of the segment), 8 columns and 328 (no multiple
+    of the strip), C = 4 over two strips, the segment boundary on h_true - 1 (as the last
+    row of a segment and as the first), and a band whose true extent ends
+    inside its first segment."""
+    from jpeg2png_tpu_torch.kernels import grad_step
+
+    seg = grad_step.segment_rows(3, True, 64, 96)
+    require(seg < 64, f"K7 edge cases: 64 rows make one segment ({seg})")
+    rr, rz = ("random", "random"), ("random", "zero")
+    return [
+        _k7_case(rng, "8-row band", 3, 8, 64, 8, (64, 64), [True] * 3, 0.3,
+                 rr),
+        _k7_case(rng, "16-row band", 3, 16, 128, 16, (40, 124),
+                 [True, False, True], 0.3, rr),
+        _k7_case(rng, "40-row band", 2, 40, 96, 40, (200, 96), [True, True],
+                 0.5, rr),
+        _k7_case(rng, "8 columns", 3, 64, 8, 64, (256, 8), [True] * 3, 0.3,
+                 rr),
+        _k7_case(rng, "328 columns", 3, 64, 328, 128, (180, 325), [True] * 3,
+                 0.3, rz),
+        _k7_case(rng, "C=4", 4, 96, 264, 96, (400, 260), [True] * 4, 0.3, rr),
+        _k7_case(rng, "segment ends on h_true - 1", 3, 64, 96, 64,
+                 (64 + seg, 96), [True] * 3, 0.3, rz),
+        _k7_case(rng, "segment starts on h_true - 1", 3, 64, 96, 64,
+                 (64 + seg + 1, 96), [False] * 3, 0.3, rz),
+        _k7_case(rng, "true extent inside the first segment", 3, 64, 96, 64,
+                 (70, 90), [True] * 3, 0.3, rz),
+    ]
+
+
 def striped_kernel_cases(rng):
     """K7 and K6 against their plain versions: K7 on the first, a middle
     and the last band, a band wholly in the padding, null, zero and random
@@ -1788,6 +1901,7 @@ def striped_kernel_cases(rng):
         _k7_case(rng, "100.7 MP band", 3, 2048, 12288, 2048, (8192, 12288),
                  [True] * 3, 0.3, ("random", "random")),
     ]
+    k7 += k7_edge_cases(rng)
     k6 = [
         _k6_case(rng, 128, 256, 1, 1, True),
         _k6_case(rng, 128, 256, 2, 2, True, gap_rows=8),
@@ -2029,19 +2143,34 @@ def phase_striped(card: str, errs):
     los, his, dqs, iqs = luma.consts[b]
     k6_args = (e1[0], g1[0], scale, los[0], his[0], dqs[0], iqs[0],
                luma.pa_sss[0], 1, 1)
+    # K2 on the same band (the striped f32 body's projection)
+    g7, e7, sumsq7, _, _ = stripe_grad.fused_grad_striped(*k7_args)
+    los, his, dqs, iqs = problem.consts[b]
+    k2_args = (e7, g7, torch.where(sumsq7 == 0, 0.0,
+                                   problem.step / torch.sqrt(sumsq7)),
+               los, his, dqs, iqs, problem.pa_sss, problem.samps)
     timed = {}
     for name, fn, plain, a in (
             ("fused_grad_striped", stripe_grad.fused_grad_striped,
              stripe_grad.fused_grad_striped_plain, k7_args),
             ("fused_project", project_step.fused_project,
-             project_step.fused_project_plain, k6_args)):
+             project_step.fused_project_plain, k6_args),
+            ("fused_project_multi", project_step.fused_project_multi,
+             project_step.fused_project_multi_plain, k2_args)):
+        saved_n = fn.launches
         timed[name] = (cuda_ms(lambda: fn(*a), 20),
                        cuda_ms(lambda: plain(*a), 3))
+        fn.launches = saved_n         # timing launches are not path ones
     L, Wb = problem.L, problem.W
-    nblocks = -(-L // 16) * -(-Wb // 32)
+    k7_split = _grad_split(stripe_grad.fused_grad_striped, k7_args)
+    log(_split_msg("fused_grad_striped", k7_split, card))
+    k2_bound = _bytes_k2(C, C, L, Wb, problem.samps, [True] * C)
+    log(f"  fused_project_multi (K2) on the same band: "
+        f"{timed['fused_project_multi'][0]:.4f} ms (bytes bound "
+        f"{k2_bound / PEAK_BYTES * 1e3:.4f} ms)  [{card}]")
     bounds = {
         "fused_grad_striped": (
-            _bytes_k1(C, C, L, Wb, nblocks) + 4 * 4 * C * 2 * Wb,
+            _bytes_k1(C, C, L, Wb, halo=True),
             K1_OPS_PER_CHANNEL_PIXEL * C * L * Wb),
         "fused_project": (_bytes_k2(1, 1, L, Wb, [(1, 1)], [True]),
                           K2_OPS_PER_COEF * L * Wb),
@@ -2061,6 +2190,7 @@ def phase_striped(card: str, errs):
             f"{r['bound_ms']:.4f} ms by {r['bound_by']}), plain "
             f"{r['plain_ms']:.4f} ms  [{card}]")
     del problem, luma, carry, lc, fs, fis, pgs, above, below, k7_args, k6_args
+    del g7, e7, k2_args, los, his, dqs, iqs
     torch.cuda.empty_cache()
 
     # --- the CLI on one card: --tpu-stripes 4 clamps with a warning
@@ -2091,6 +2221,9 @@ def phase_striped(card: str, errs):
         "tiled_separate_ms_per_iter": sep_ms / it,
         "tiled_ms_per_iter": {k: v["ms"] / it for k, v in big.items()},
         "tiled_peak_gib": {k: v["peak"] / 2 ** 30 for k, v in big.items()},
+        "k7_split_ms": k7_split,
+        "k2_band_ms": timed["fused_project_multi"][0],
+        "k2_band_bound_ms": k2_bound / PEAK_BYTES * 1e3,
         "collectives_per_iteration": 3}
     return records, summary
 

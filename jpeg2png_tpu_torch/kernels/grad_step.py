@@ -13,14 +13,19 @@ the row-striped solve with its halo rows, kernels/stripe_grad.py;
 `launch` below serves both).  What bounds it on an H100: memory.  It
 reads f, fista and the prob gradient and writes grad and extrap, 15 f32
 canvases at C = P = 3 (~377 MB at 3072x2048), against ~150 flops per
-pixel.  What the design does about it: each block stages a 16x32 tile
-of the extrapolated iterate for all channels plus the stencil's 2-pixel
-halo (the TGV2 gather reaches through two chained differences) in
-shared memory, computes every per-pixel term of the gather once on the
-tile plus a 1-pixel ring, and writes grad and extrap once; nothing but
-the inputs and outputs touches device memory.  The partial sums go to one row per
-block and a second kernel reduces them in a fixed order — no float
-atomics, so two runs give the same bits.
+pixel.  What the design does about it: a row-marching stencil.  Each
+block of 256 threads owns a strip of OUTW = 254 output columns (plus
+one term column on each side) and a segment of rows, and walks down it
+one row per step: f, fista and prob-gradient rows arrive by cp.async
+two steps ahead of their use, the per-pixel terms of the gather are
+computed once per row and kept in registers or, where a neighbouring
+column reads them, in small row rings in shared memory, and grad and
+extrap are written once; nothing but the inputs and outputs touches
+device memory.  The partial sums go to one row per block (strips x
+segments, about one wave of resident blocks: `partial_rows`) and a
+second kernel reduces them in a fixed order -- no float atomics, so two
+runs give the same bits.  The library reports the number of rows
+(j2p_grad_partial_rows) and the wrapper sizes its scratch from it.
 
 On a CPU tensor the wrapper runs the plain PyTorch version below; on a
 CUDA tensor it launches the kernel or raises.
@@ -37,8 +42,9 @@ from jpeg2png_tpu_torch.kernels import _build
 from jpeg2png_tpu_torch.ops.tv import shift2d
 
 MAX_CHANNELS = 4
-TILE_H, TILE_W = 16, 32      # csrc/grad_step.cu TH, TW
 HALO_ROWS = 2                # rows of a band's halo arrays: the stencil's reach
+OUTW, MIN_SEG = 254, 16      # csrc/grad_step.cu: output columns per strip,
+                             # the shortest segment of rows
 
 
 def stack_channels(seq) -> torch.Tensor:
@@ -147,6 +153,19 @@ def fused_grad_plain(fdatas, fistas, pgrads, factor: float, weight: float,
     return grad, e, sumsq, tv, tv2
 
 
+def partial_rows(L: int, W: int, slots: int) -> int:
+    """Rows of partial sums of the CUDA kernel on a band of L x W when
+    `slots` blocks are resident on the card (occupancy x SMs): strips of
+    OUTW columns times segments of rows, the segments sized so that the
+    grid is about one wave (at least MIN_SEG rows each).  Mirrors
+    csrc/grad_step.cu make_grid; the wrapper asks the library
+    (j2p_grad_partial_rows), which knows the occupancy."""
+    strips = -(-W // OUTW)
+    target = max(1, slots // strips)
+    seg = max(MIN_SEG, -(-L // target))
+    return strips * -(-L // seg)
+
+
 _ARGTYPES = (
     [ctypes.c_void_p] * 11           # f, fista, f/fista halos (4), pgrad,
                                      # grad, extrap, part, out
@@ -164,7 +183,32 @@ def _launcher():
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
+        for name in ("j2p_grad_partial_rows", "j2p_grad_segment_rows"):
+            rows = getattr(lib, name)
+            rows.argtypes = [ctypes.c_int] * 4
+            rows.restype = ctypes.c_int
     return lib, fn
+
+
+def _ask(lib, name: str, C: int, tgv: bool, L: int, W: int) -> int:
+    n = getattr(lib, name)(C, int(tgv), L, W)
+    if n < 1:
+        _build.check(lib, -n, name)
+        raise RuntimeError(f"{name} returned {n}")
+    return n
+
+
+def scratch(lib, C: int, tgv: bool, L: int, W: int, device) -> torch.Tensor:
+    """The kernel's partial-sum rows [n, C + 2], n as the library reports
+    it for this band on the current card."""
+    n = _ask(lib, "j2p_grad_partial_rows", C, tgv, L, W)
+    return torch.empty((n, C + 2), device=device, dtype=torch.float32)
+
+
+def segment_rows(C: int, tgv: bool, L: int, W: int) -> int:
+    """Rows per segment of the kernel's grid for a band of L x W on the
+    current card (the last segment may be shorter)."""
+    return _ask(_launcher()[0], "j2p_grad_segment_rows", C, tgv, L, W)
 
 
 def launch(what: str, fdatas, fistas, pgrads, halos, factor: float,
@@ -197,6 +241,13 @@ def launch(what: str, fdatas, fistas, pgrads, halos, factor: float,
     if not (row0 >= 0 and h_true >= 1 and 1 <= w_true <= W):
         raise ValueError(f"{what}: true extent {h_true}x{w_true} of a {W} "
                          f"wide canvas at row {row0}")
+    # the kernel copies rows in 16-byte chunks: every canvas is whole 8x8
+    # blocks, so W % 8 == 0 on every path, and the planes start aligned
+    if W % 8 != 0:
+        raise ValueError(f"{what}: width {W} is not a multiple of 8")
+    for name, t, _ in checks:
+        if t is not None and t.data_ptr() % 16 != 0:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned")
 
     pidx = [-1] * MAX_CHANNELS
     k = 0
@@ -204,13 +255,13 @@ def launch(what: str, fdatas, fistas, pgrads, halos, factor: float,
         if p is not None:
             pidx[c] = k
             k += 1
-    nblocks = -(-L // TILE_H) * -(-W // TILE_W)
+    lib, fn = _launcher()
     grad = torch.empty_like(f)
     extrap = torch.empty_like(f)
-    part = torch.empty((nblocks, C + 2), device=f.device, dtype=torch.float32)
+    # sized for the current card, as the launch's grid is
+    part = scratch(lib, C, weight != 0.0, L, W, f.device)
     out = torch.empty((C + 2,), device=f.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(f.device).cuda_stream
-    lib, fn = _launcher()
     err = fn(f.data_ptr(), fi.data_ptr(),
              *(None if h is None else h.data_ptr() for h in hl),
              None if pg is None else pg.data_ptr(), grad.data_ptr(),

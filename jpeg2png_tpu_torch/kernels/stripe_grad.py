@@ -14,10 +14,11 @@ whose first row is global row `row0`,
 with the two rows the stencil reaches past either band edge taken from
 halo arrays of f and fista [C, HALO_ROWS, W] (the neighbouring bands'
 rows; zeros at the canvas edge), not from the TPU's 8-row DMA tiles.
-CUDA version: K1's kernel (csrc/grad_step.cu), which stages the halo rows
-and keys every row mask on row0 + band row; K1 is the same kernel on the
-whole canvas (row0 0, no halos).  What bounds it on an H100: memory, 4 *
-(3C + P) bytes per pixel as K1.  The f32 striped body
+CUDA version: K1's kernel (csrc/grad_step.cu, a row-marching stencil),
+which copies the halo rows into its row ring and keys every row mask on
+row0 + band row; K1 is the same kernel on the whole canvas (row0 0, no
+halos).  What bounds it on an H100: memory, 4 *
+(4C + P) bytes per pixel as K1.  The f32 striped body
 (parallel/stripes.py) runs it on every band in every iteration.
 
 K4, fused_grad_striped_lite, replaces the Pallas kernel
@@ -65,12 +66,15 @@ import torch
 
 from jpeg2png_tpu_torch.kernels import _build, grad_step
 from jpeg2png_tpu_torch.kernels.grad_step import (
-    HALO_ROWS, MAX_CHANNELS, TILE_H, TILE_W, stack_channels, tgv_alpha)
+    HALO_ROWS, MAX_CHANNELS, stack_channels, tgv_alpha)
 from jpeg2png_tpu_torch.ops.dct_raster import idct_raster
 from jpeg2png_tpu_torch.ops.resample import upsample_replicate
 from jpeg2png_tpu_torch.ops.tv_halo import band_stencil
 
 LEGAL_SAMPS = (1, 2, 4)
+# K4's own output tile (csrc/stripe_grad.cu TH, TW): one row of partial
+# sums per tile, so it sizes K4's scratch (K7's kernel has another grid)
+LITE_TILE_H, LITE_TILE_W = 16, 32
 
 
 def _halo_rows(halos, C, W, device):
@@ -199,6 +203,11 @@ _ARGTYPES = (
 )
 
 
+def lite_partial_rows(L: int, W: int) -> int:
+    """Rows of K4's partial sums: one per LITE_TILE_H x LITE_TILE_W tile."""
+    return -(-L // LITE_TILE_H) * -(-W // LITE_TILE_W)
+
+
 def _launcher():
     lib = _build.library("stripe_grad")
     fn = lib.j2p_fused_grad_lite
@@ -288,7 +297,7 @@ def fused_grad_striped_lite(fdatas, ds, devqs, halos, factor, row0,
             _check(dq, f"devqs[{c}]", (L // sy, W // sx), torch.bfloat16, dev)
             ptrs[c] = dq.data_ptr()
             pas[c] = p_alpha_sss[c] / (sy * sx)
-    nblocks = -(-L // TILE_H) * -(-W // TILE_W)
+    nblocks = lite_partial_rows(L, W)
     grad = torch.empty((C, L, W), device=dev, dtype=torch.bfloat16)
     part = torch.empty((nblocks, C + 2), device=dev, dtype=torch.float32)
     out = torch.empty((C + 2,), device=dev, dtype=torch.float32)

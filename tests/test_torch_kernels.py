@@ -220,3 +220,109 @@ def test_torch_cuda_fused_project_multi_matches_plain(cuda_device, samps,
         if a is not None:
             torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * max(
                 1e-3, float(b.abs().max())))
+
+
+# ------------------------------------------------- K1's grid and scratch
+
+@pytest.mark.parametrize("L,W,slots,rows", [
+    # 3072 / 254 -> 13 strips (12 x 254 + 24); 264 // 13 = 20 segments
+    # wanted, so ceil(2048 / 20) = 103 rows each: 20 segments (19 x 103 +
+    # 91)
+    (2048, 3072, 264, 13 * 20),
+    # 12288 / 254 -> 49 strips (48 x 254 + 96); 264 // 49 = 5: 410 rows
+    # each, 5 segments (4 x 410 + 408)
+    (2048, 12288, 264, 49 * 5),
+    # 2 strips (254 + 46); 16-row segments: 7 (6 x 16 + 4)
+    (100, 300, 264, 2 * 7),
+    # 2 strips of exactly 254; 4 // 2 = 2 segments of 20 rows
+    (40, 508, 4, 2 * 2),
+    (8, 8, 264, 1),             # one strip, one segment shorter than 16 rows
+    (8, 3072, 264, 13),         # one segment per strip
+    (64, 96, 1, 1),             # one resident block: the band in one segment
+])
+def test_torch_grad_partial_rows_mirror(L, W, slots, rows):
+    """kernels/grad_step.py::partial_rows, the CPU mirror of
+    csrc/grad_step.cu make_grid, against grids counted by hand: strips of
+    254 columns, segments of at least 16 rows sized so that the grid is
+    about one wave of `slots` resident blocks."""
+    assert grad_step.partial_rows(L, W, slots) == rows
+
+
+def test_torch_cuda_grad_partial_rows_mirror_matches_library(cuda_device):
+    """The mirror against the library on the card: one strip of 2^24 rows
+    splits into as many segments as blocks are resident (slots), and
+    every grid of the hand-counted cases then has the library's rows."""
+    lib, _ = grad_step._launcher()
+    slots = lib.j2p_grad_partial_rows(3, 1, 1 << 24, 8)
+    for L, W in ((2048, 3072), (2048, 12288), (100, 300), (8, 8)):
+        assert lib.j2p_grad_partial_rows(3, 1, L, W) == \
+            grad_step.partial_rows(L, W, slots)
+
+
+class _FakeGradLib:
+    """The two row-count entry points of the gradient library, answering
+    `rows` (or a negative CUDA error), and its error string."""
+
+    def __init__(self, rows):
+        self.asked = []
+
+        def count(C, tgv, L, W):
+            self.asked.append((C, tgv, L, W))
+            return rows
+        self.j2p_grad_partial_rows = count
+
+        def error_string(err):
+            return b"invalid argument"
+        self.j2p_error_string = error_string
+
+
+def test_torch_grad_scratch_is_what_the_library_reports():
+    """K1's wrapper sizes its partial-sum scratch from the library's
+    j2p_grad_partial_rows for the band (no tile constants in Python), and
+    raises on the library's error."""
+    lib = _FakeGradLib(37)
+    part = grad_step.scratch(lib, 3, True, 2048, 3072, "cpu")
+    assert part.shape == (37, 5) and part.dtype == torch.float32
+    assert lib.asked == [(3, 1, 2048, 3072)]
+    assert grad_step.scratch(_FakeGradLib(1), 1, False, 8, 8, "cpu").shape \
+        == (1, 3)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        grad_step.scratch(_FakeGradLib(-1), 3, True, 8, 8, "cpu")
+
+
+# edges of the row-marching grid: C, H, W, weight, prob, h_true, w_true;
+# "seg" / "seg+1" put h_true - 1 on the last / first row of a segment
+K1_EDGE_CASES = [
+    (3, 8, 64, 0.3, [True] * 3, None, None),        # shorter than a segment
+    (3, 16, 128, 0.3, [True, False, True], None, None),   # one segment
+    (2, 40, 8, 0.3, [True, False], None, None),     # 8 columns
+    (3, 104, 328, 0.3, [True] * 3, 99, 325),        # L, W off the grid
+    (4, 72, 264, 0.3, [True] * 4, 70, None),        # C = 4, 2 strips
+    (3, 64, 96, 0.3, [True] * 3, 5, None),          # extent in segment 1
+    (3, 64, 96, 0.3, [True] * 3, "seg", None),
+    (3, 64, 96, 0.3, [False] * 3, "seg+1", None),
+]
+
+
+@pytest.mark.parametrize("C,H,W,weight,prob,h_true,w_true", K1_EDGE_CASES)
+def test_torch_cuda_fused_grad_grid_edges(cuda_device, C, H, W, weight, prob,
+                                          h_true, w_true):
+    """K1 against its plain version where the row-marching grid has edges
+    (chip_smoke.py's k1_edge_cases): K1's gates, the gradient within 1e-5
+    of its magnitude, extrap exact, the sums rtol 1e-5."""
+    if isinstance(h_true, str):
+        seg = grad_step.segment_rows(C, weight != 0.0, H, W)
+        assert seg < H
+        h_true = seg + (1 if h_true == "seg+1" else 0)
+    rng = np.random.default_rng(3)
+    fs, fis, pgs = _k1_inputs(rng, C, H, W, prob)
+    args = (torch.as_tensor(fs, device=cuda_device),
+            torch.as_tensor(fis, device=cuda_device),
+            _torch_pgs(pgs, cuda_device), 0.37, weight, h_true, w_true)
+    got = grad_step.fused_grad(*args)
+    ref = grad_step.fused_grad_plain(*args)
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-5 * max(
+        1.0, float(ref[0].abs().max())))
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=0)
+    for a, b in zip(got[2:], ref[2:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)

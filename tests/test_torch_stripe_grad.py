@@ -442,3 +442,30 @@ def test_torch_cuda_k4_k5_match_plain(cuda_device):
     for a, b in zip(got[2], ref[2]):
         assert _within_bf16_step(a, b, 1e-5 * coef)
     torch.testing.assert_close(got[3], ref[3], rtol=1e-5, atol=0)
+
+
+def test_torch_cuda_k4_after_k1_keeps_its_own_scratch(cuda_device):
+    """K4 sizes its partial-sum scratch from its own 16 x 32 tile
+    (stripe_grad.lite_partial_rows), not from K1's grid: K1 then K4 on a
+    band where the two grids have different row counts, K4 against its
+    plain version with the gates of test_torch_cuda_k4_k5_match_plain."""
+    from jpeg2png_tpu_torch.kernels import grad_step
+
+    rng = np.random.default_rng(18)
+    samps, C, H, W = S420, 3, 256, 512
+    f, d = _state(rng, C, H, W)
+    ft = _t(f).cuda()
+    k1_rows = grad_step.scratch(grad_step._launcher()[0], C, True, H, W,
+                                "cuda").shape[0]
+    assert k1_rows != stripe_grad.lite_partial_rows(H, W)
+    grad_step.fused_grad(ft, ft - _t(d).cuda(), [None] * C, 0.37, 0.3)
+    devqs = _devqs(rng, H, W, samps, [True] * 3)
+    pa_ss = [0.36 * sy * sx for sy, sx in samps]
+    args = (ft, _t(d, torch.bfloat16).cuda(),
+            [_t(x, torch.bfloat16).cuda() for x in devqs], None, 0.37, 0,
+            0.3, samps, pa_ss, H, H, W)
+    got = stripe_grad.fused_grad_striped_lite(*args)
+    ref = stripe_grad.fused_grad_striped_lite_plain(*args)
+    floor = 1e-5 * max(1.0, float(ref[0].float().abs().max()))
+    assert _within_bf16_step(got[0], ref[0], floor)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=0)

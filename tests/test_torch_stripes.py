@@ -25,11 +25,13 @@ from jpeg2png_tpu.parallel.stripes import (  # noqa: E402
     solve_striped as jsolve_striped)
 from jpeg2png_tpu_torch import pipeline  # noqa: E402
 from jpeg2png_tpu_torch.io import read_jpeg  # noqa: E402
-from jpeg2png_tpu_torch.kernels import project_step, stripe_grad  # noqa: E402
+from jpeg2png_tpu_torch.kernels import (  # noqa: E402
+    grad_step, project_step, stripe_grad)
 from jpeg2png_tpu_torch.models import solver  # noqa: E402
 from jpeg2png_tpu_torch.ops import tv_halo  # noqa: E402
 from jpeg2png_tpu_torch.ops.dct import dct_matrix_f64  # noqa: E402
 from jpeg2png_tpu_torch.ops.dct_raster import sampled_dct  # noqa: E402
+from jpeg2png_tpu_torch.ops.tv import shift2d  # noqa: E402
 from jpeg2png_tpu_torch.parallel import stripes  # noqa: E402
 from jpeg2png_tpu_torch.parallel.mesh import (  # noqa: E402
     available_devices, stripe_mesh)
@@ -77,9 +79,13 @@ def _band_window(canvas, row0, L, halo):
     (2, 0.5, 64, 70, 128),     # true extent 6 rows into the last band
 ])
 def test_torch_tv_halo_matches_jax(C, weight, row0, h_true, w_true):
-    """grad_gather_halo against the JAX op on a band of a 96x128 canvas
-    (frozen zero padding past the true extent): gradient within 1e-5 of
-    its magnitude, tv and tv2 rtol 1e-5 (the two sum in other orders)."""
+    """grad_gather_halo of the port and of the JAX package, each in f32, on
+    a band of a 96x128 canvas (frozen zero padding past the true extent),
+    each held against the port's band stencil evaluated in float64 on the
+    same inputs: the gradient within _f32_stencil_bound per pixel, tv and
+    tv2 rtol 1e-5 (f32 sums of 4096 positive terms in blocked order, a few
+    ulps of log2(4096) * 2^-24 ~ 7e-7).  A miss names the side that
+    moved."""
     rng = np.random.default_rng(31)
     L = 32
     canvas = rng.normal(0, 50, (C, 96, 128)).astype(np.float32)
@@ -90,14 +96,59 @@ def test_torch_tv_halo_matches_jax(C, weight, row0, h_true, w_true):
                                    weight, w_true=w_true)
     ref = jtv_halo.grad_gather_halo(jnp.asarray(ext), row0, h_true, weight,
                                     w_true=w_true)
-    scale = max(1.0, float(np.abs(np.asarray(ref[0])).max()))
-    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]),
-                               atol=1e-5 * scale)
-    np.testing.assert_allclose(float(got[1]), float(ref[1]), rtol=1e-5)
-    np.testing.assert_allclose(float(got[2]), float(ref[2]), rtol=1e-5)
+    e64 = torch.as_tensor(ext).double()
+    exact = tv_halo.grad_gather_halo(e64, row0, h_true, weight,
+                                     w_true=w_true)
+    tol = _f32_stencil_bound(e64, row0, h_true, w_true, weight).numpy()
+    g64 = exact[0].numpy()
+    for side, g in (("port", got[0].numpy()), ("JAX", np.asarray(ref[0]))):
+        err = np.abs(g.astype(np.float64) - g64)
+        bad = err > tol
+        assert not bad.any(), (
+            f"{side} side: {int(bad.sum())} of {bad.size} gradient elements "
+            f"beyond the f32 bound (worst {float((err / tol).max()):.3g}x, "
+            f"max abs err {float(err.max()):.3g})")
+        for k, what in ((1, "tv"), (2, "tv2")):
+            val = float((got if side == "port" else ref)[k])
+            np.testing.assert_allclose(val, float(exact[k]), rtol=1e-5,
+                                       err_msg=f"{side} side {what}")
     # nothing outside the true canvas
     g = got[0].numpy()
     assert not g[:, max(0, h_true - row0):].any() and not g[:, :, w_true:].any()
+
+
+def _f32_stencil_bound(e64, row0, h_true, w_true, weight):
+    """Per-pixel bound [L, W] on the error of an f32 evaluation of the band
+    stencil against float64, u = 2^-24, from the float64 norms.
+
+    The inputs are exact in both.  A TV term a = gx / |g| rounds once in
+    the difference, then in the squares and the C-channel sum, the sqrt,
+    the reciprocal and the product: relative error <= (C + 5) u, and |a|
+    <= 1, so each of the 4 TV terms of a pixel is off by at most (C + 5) u,
+    plus the gather's own additions: alpha * 4 (C + 6) u.  A TGV2 term p =
+    (g_xx + sym) / |G| differences two rounded first differences, so its
+    numerator is off by up to ~3 u F, F the first-order norm of the pixels
+    feeding it (the pixel, its left and upper neighbours), and 1 / |G|
+    carries that to p as 3 u F / |G|; with the norm's own rounding and the
+    sign-free bound |p| <= 2, each of the 7 terms a pixel gathers is off
+    by at most 8 (C + 5) u (1 + F / |G|) (0 where |G| = 0: both sides
+    compute exact zeros there), times alpha2."""
+    C, T, W = e64.shape
+    rows = (int(row0) - stripe_grad.HALO_ROWS + torch.arange(T))[:, None]
+    cols = torch.arange(W)[None, :]
+    _, g_norm, n2 = grad_step.stencil(e64, rows, cols, h_true, w_true, weight)
+    u = 2.0 ** -24
+    tol = torch.full((T, W), 4 * (C + 6) * u / np.sqrt(C), dtype=torch.float64)
+    if n2 is not None:
+        def at(a, dy, dx):                 # a[y + dy, x + dx], zero outside
+            return shift2d(a, -dy, -dx)
+        feed = torch.maximum(g_norm, torch.maximum(at(g_norm, 0, -1),
+                                                   at(g_norm, -1, 0)))
+        term = torch.where(n2 > 0, 1.0 + feed / n2.clamp_min(1e-300), 0.0)
+        gathered = sum(at(term, dy, dx) for dy, dx in (
+            (0, 0), (0, 1), (0, -1), (1, 0), (-1, 0), (1, -1), (-1, 1)))
+        tol = tol + 8 * (C + 5) * u * grad_step.tgv_alpha(C, weight) * gathered
+    return tol[stripe_grad.HALO_ROWS:T - stripe_grad.HALO_ROWS]
 
 
 # ------------------------------------------------------------ K7
@@ -542,3 +593,54 @@ def test_torch_cuda_k6_matches_plain(cuda_device):
                  + pa_ss / (sy * sx) * 2.0 ** -21 * float(np.abs(dq).max()))
         assert float((got[1] - ref[1]).abs().max()) <= p_tol
         torch.testing.assert_close(got[2], ref[2], rtol=1e-5, atol=0)
+
+
+# edges of the row-marching grid for K7 (chip_smoke.py's k7_edge_cases):
+# C, prob, weight, L, W, row0, h_true, w_true; "seg" / "seg+1" put
+# h_true - 1 on the last / first row of a segment of the band
+K7_EDGE_CASES = [
+    (3, [True] * 3, 0.3, 8, 64, 8, 64, 64),             # 8-row band
+    (3, [True, False, True], 0.3, 16, 128, 16, 40, 124),  # 16-row band
+    (2, [True, True], 0.5, 40, 96, 40, 200, 96),        # 40 rows: 16+16+8
+    (3, [True] * 3, 0.3, 64, 8, 64, 256, 8),            # 8 columns
+    (3, [True] * 3, 0.3, 64, 328, 128, 180, 325),       # 328 columns
+    (4, [True] * 4, 0.3, 96, 264, 96, 400, 260),        # C = 4
+    (3, [True] * 3, 0.3, 64, 96, 64, "seg", 96),
+    (3, [False] * 3, 0.3, 64, 96, 64, "seg+1", 96),
+    (3, [True] * 3, 0.3, 64, 96, 64, 70, 90),           # extent in segment 1
+]
+
+
+@pytest.mark.parametrize("C,prob,weight,L,W,row0,h_true,w_true",
+                         K7_EDGE_CASES)
+def test_torch_cuda_k7_grid_edges(cuda_device, C, prob, weight, L, W, row0,
+                                  h_true, w_true):
+    """K7 against its plain version where the row-marching grid has edges,
+    random halo rows: K1's gates (gradient 1e-5 of its magnitude, extrap
+    1e-6, sums rtol 1e-5), and outside the true extent the prob term
+    alone."""
+    if isinstance(h_true, str):
+        seg = grad_step.segment_rows(C, weight != 0.0, L, W)
+        assert seg < L
+        h_true = row0 + seg + (1 if h_true == "seg+1" else 0)
+    rng = np.random.default_rng(41)
+    t = lambda x: torch.as_tensor(x.astype(np.float32), device=cuda_device)  # noqa: E731
+    f = t(rng.normal(0, 50, (C, L, W)))
+    fi = f + t(rng.normal(0, 2, (C, L, W)))
+    halos = tuple(t(rng.normal(0, 50, (C, 2, W))) for _ in range(4))
+    pg = t(rng.normal(0, 1, (C, L, W)))
+    pgs = [pg[c] if on else None for c, on in enumerate(prob)]
+    args = (f, fi, pgs, halos, 0.37, row0, weight, h_true, w_true)
+    got = stripe_grad.fused_grad_striped(*args)
+    ref = stripe_grad.fused_grad_striped_plain(*args)
+    assert float((got[0] - ref[0]).abs().max()) <= 1e-5 * max(
+        1.0, float(ref[0].abs().max()))
+    assert float((got[1] - ref[1]).abs().max()) <= 1e-6 * float(
+        ref[1].abs().max())
+    for k in (2, 3, 4):
+        torch.testing.assert_close(got[k], ref[k], rtol=1e-5, atol=0)
+    h_out = max(0, min(L, h_true - row0))
+    for c, p in enumerate(pgs):
+        want = torch.zeros_like(f[c]) if p is None else p
+        assert torch.equal(got[0][c, h_out:], want[h_out:])
+        assert torch.equal(got[0][c, :, w_true:], want[:, w_true:])
