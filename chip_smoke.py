@@ -25,11 +25,18 @@ non-zero exit and no result line):
      kernel's own state; K1 and K7 where their row-marching grid has
      edges (bands of 8 and 16 rows, 8 and 328 columns, heights off the
      segment, C = 4, a segment boundary on h_true - 1), and the Python
-     mirror of that grid against the library's;
+     mirror of that grid against the library's; K3 and K3 lite where their
+     cells have edges (k3_cell_cases: a canvas narrower than a cell, W =
+     512, a ragged last strip, heights off the cell rows, extents on and
+     past a cell boundary, B = 8, C = 1 and 4, 4:1:1, 4:4:0, a region gap
+     with its prob term off) and the Python mirror of K3's plan;
   5. goldens: three fixtures decoded at -i 50 through the pipeline must
      reach PSNR > 45 dB against the reference binary's PNGs, and the
      photo512 -i 5 CSV must agree with the reference on iterations 0-1,
-     each through all four solver tiers (forced with tier=);
+     each through all four solver tiers (forced with tier=); photo512 at
+     -i 1000 through the mega and mega-lite tiers against the reference's
+     converged golden (> 55 dB, as tests/tpu_checks.py holds the JAX
+     package);
   6. the single-image path: the default-flag CLI decode of a 3072x2048
      4:2:0 q30 JPEG (the tier solver.tier_rule picks) with the launch
      counters read around it, the same decode forced to two-lite (50
@@ -38,8 +45,11 @@ non-zero exit and no result line):
      plain path); per-kernel times beside their bounds (the bytes each
      launch must move, whatever its grid) and the plain versions' times,
      K1's split between its gradient kernel and its reduction
-     (torch.profiler); the tier sweep: every tier at 0.26, 1.23, 3.15,
-     6.29 and 8.0 MP (the numbers that set the rule's gates);
+     (torch.profiler); K3 and K3 lite alone where K3 runs (photo512, the
+     1.23 MP sweep image, the dyn 1024x1280 serving chunk, 3072x2048; real
+     states, beside the bound and the per-iteration streaming figure) and
+     the solver's set-up at photo512; the tier sweep: every tier at 0.26,
+     1.23, 3.15, 6.29 and 8.0 MP (the numbers that set the rule's gates);
   7. serving: cli.main --tpu-batch on the 48-file corpus
      (tests/fixtures/torch_serving), with the committed gates and with
      gates that give every class work: the launch count of each kernel
@@ -655,6 +665,9 @@ def phase_kernels(corpus):
     exts = [runner.bucket_shape_for(im) for im in chunk]
     k3 += k3_random_cases(rng, key[1:3], exts)
     k4, k5, k3_lite = lite_kernel_cases(rng, key[1:3], exts)
+    cell_f32, cell_lite = k3_cell_cases(rng)
+    k3 += cell_f32
+    k3_lite = max([k3_lite] + cell_lite)
     # max abs errors: K1 and K2 at 3072x2048, the others over their cases
     return {"fused_grad": k1[0], "fused_project_multi": k2[0],
             "fused_solve": max(k3), "fused_solve_lite": k3_lite,
@@ -685,6 +698,244 @@ def k3_random_cases(rng, bucket, exts):
         _k3_random_case(rng, "C=1 weight 0", 1, 40, 56, [(1, 1)], [True],
                         0.0, 3),
     ]
+
+
+def k3_cell_cases(rng):
+    """K3 where its cell decomposition has edges, f32 and lite, on random
+    data over 3 iterations at the exact gates (_k3_compare,
+    _k3_lite_compare): a canvas narrower than one cell, W = 512, a ragged
+    last strip, a height off the cell rows, the cell boundary on h_true - 1
+    (and a block past it), B = 8 with extents ending in
+    the first cells, C = 1 and C = 4, 4:1:1, 4:4:0, a region gap with its
+    prob term off.  First the Python mirror of the plan
+    (iter_step.plan) against the library's.  Returns the max abs errors
+    (f32, lite)."""
+    from jpeg2png_tpu_torch.kernels import iter_step
+
+    s420 = S420
+    for B, C, H, W, samps, prob, lite in (
+            (1, 3, 512, 512, s420, [True] * 3, False),
+            (1, 3, 960, 1280, s420, [True] * 3, True),
+            (4, 3, 1024, 1280, s420, [True] * 3, False),
+            (1, 3, 2048, 3072, s420, [True] * 3, False),
+            (8, 3, 256, 384, s420, [True] * 3, True),
+            (1, 4, 64, 64, [(1, 1)] * 4, [True, False, True, False], False),
+            (1, 3, 48, 128, LITE_GEOMETRIES["4:1:1"], [True] * 3, False)):
+        want = iter_step.plan(B, C, H, W, samps, prob, lite,
+                              *iter_step.library_plan_inputs(C, 0.3, lite))
+        got = iter_step.launch_plan(B, C, H, W, samps, prob, 0.3, lite)
+        require(got == want, f"K3 plan B={B} C={C} {H}x{W} lite={lite}: "
+                             f"library {got}, mirror {want}")
+    # cell rows of a 1040 x 1280 canvas (not a multiple of them, unless
+    # the card's grid makes it one) and of a 2-image 192 x 256 bucket.
+    # Extents stay whole coefficient blocks (multiples of 16 at 4:2:0, as
+    # the runner's canvases are): frozen padding is exactly 0 only then
+    rows = iter_step.launch_plan(1, 3, 1040, 1280, s420, [True] * 3,
+                                 0.3)["rows"]
+    brow = iter_step.launch_plan(2, 3, 192, 256, s420, [True] * 3,
+                                 0.3)["rows"]
+    log(f"  K3 cell rows: {rows} at 1040x1280, {brow} in a 2-image "
+        f"192x256 bucket")
+    require(2 * brow + 16 <= 192, f"192x256 bucket cells of {brow} rows")
+    cases = [
+        ("narrow", 1, 80, 48, s420, [True] * 3, 0.3, None, 0),
+        ("W=512", 1, 64, 512, s420, [True] * 3, 0.3, None, 0),
+        ("ragged strip", 1, 48, 336, s420, [True] * 3, 0.3, None, 0),
+        ("rows off the cell", 1, 1040, 1280, s420, [True] * 3, 0.3, None, 0),
+        ("h_true - 1 a cell's last row", 2, 192, 256, s420, [True] * 3, 0.3,
+         [(brow, 256), (2 * brow, 240)], 0),
+        ("h_true a block past a cell", 2, 192, 256, s420, [True] * 3, 0.3,
+         [(brow + 16, 256), (2 * brow + 16, 224)], 0),
+        ("B=8 first cells", 8, 192, 256, s420, [True] * 3, 0.3,
+         [(16 + 16 * (b % 2), 64 + 16 * b) for b in range(8)], 0),
+        ("C=1", 1, 72, 200, [(1, 1)], [True], 0.3, None, 0),
+        ("C=4", 1, 64, 136, [(1, 1)] * 4, [True, False, True, False], 0.3,
+         None, 0),
+        ("4:1:1", 1, 48, 256, LITE_GEOMETRIES["4:1:1"], [True] * 3, 0.3,
+         None, 0),
+        ("4:4:0", 1, 96, 160, LITE_GEOMETRIES["4:4:0"], [True] * 3, 0.3,
+         None, 0),
+        ("gap, prob off", 1, 64, 160, s420, [False, True, True], 0.3, None,
+         16),
+    ]
+    f32, lite = [], []
+    for label, B, H, W, samps, prob, weight, exts, gap in cases:
+        f32.append(_k3_random_case(rng, f"cells {label}", B, H, W, samps,
+                                   prob, weight, 3, exts=exts,
+                                   gap_rows=gap))
+        lite.append(_k3_lite_random_case(rng, f"cells {label}", B, H, W,
+                                         samps, prob, weight, 3, exts=exts,
+                                         gap_rows=gap))
+    return f32, lite
+
+
+# ------------------------------------------------ K3 where it runs
+
+K3_POINTS = ("photo512", "1.23MP", "dyn1024x1280", "3072x2048")
+# the converged golden's gate per whole-solve tier: tests/tpu_checks.py
+# holds the JAX package's mega and mega-lite tiers to > 55 dB
+GOLDEN_I1000_DB = {"mega": 55.0, "mega-lite": 55.0}
+
+
+def golden_i1000(tier: str) -> float:
+    """PSNR of photo512 decoded at -i 1000 (default weights) through `tier`
+    against the reference binary's converged golden."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from pngdec import decode_png
+
+    from jpeg2png_tpu_torch.io import read_jpeg
+    from jpeg2png_tpu_torch.models import solver
+    from jpeg2png_tpu_torch.pipeline import _pack
+
+    img = read_jpeg(FIXTURES / "photo512_q10_420.jpg")
+    fd, _ = solver.solve_joint(*_args(img), 0.3, [0.001] * 3, 1000,
+                               device=DEVICE, tier=tier)
+    gold = decode_png((FIXTURES / "golden" / "photo512_q10_420_i1000.png")
+                      .read_bytes())
+    return psnr(_pack(list(fd), img, 8), gold)
+
+
+def bucket_chunk(images):
+    """The serving corpus's dyn 1024x1280 chunk (up to 8 images) and its
+    bucket, as runner.plan_buckets forms it."""
+    from jpeg2png_tpu_torch import runner
+
+    plan = runner.plan_buckets(images, [0.001] * 3)
+    for key, members in plan.items():
+        if key[0] == "dyn" and tuple(key[1:3]) == (1024, 1280):
+            return ([images[i] for i in members][:runner.CHUNK_IMAGES],
+                    (1024, 1280))
+    raise SmokeFailure("no dyn 1024x1280 bucket in the serving corpus")
+
+
+def k3_point_args(point, chunk):
+    """K3's f32 arguments (50 iterations) and extents on a real solver
+    state at `point`: the mega tier after 3 iterations (photo512, the 1.23
+    MP sweep image, the 3072x2048 smoke JPEG; static extents), the dyn
+    1024x1280 serving chunk after 3 iterations of K3 (dynamic extents)."""
+    import torch
+
+    from jpeg2png_tpu_torch import runner
+    from jpeg2png_tpu_torch.io import read_jpeg
+    from jpeg2png_tpu_torch.kernels import iter_step
+    from jpeg2png_tpu_torch.models import solver
+    from jpeg2png_tpu_torch.models.solver import objective_alphas
+
+    if point == "dyn1024x1280":
+        imgs, bucket = chunk
+        f, dats, q_rs, ext, step = runner.prepare_chunk(imgs, bucket, 50,
+                                                        DEVICE)
+        samps = [(p.h_samp, p.w_samp) for p in imgs[0].planes]
+        pa, _ = objective_alphas(0.3, [0.001] * 3, 3)
+        pa_ss = [pa[c] * sy * sx for c, (sy, sx) in enumerate(samps)]
+        factors, _ = iter_step.fista_factors(1.0, 53)
+        saved = iter_step.fused_solve.launches
+        f, fi, devqs, _ = iter_step.fused_solve(
+            f, f, [torch.zeros_like(q) for q in q_rs], factors[:3], step,
+            dats, q_rs, pa_ss, samps, 0.3, extents=ext)
+        iter_step.fused_solve.launches = saved     # not a path launch
+        return (f, fi, list(devqs), factors[3:], step, dats, q_rs, pa_ss,
+                samps, 0.3), ext
+    path = {"photo512": FIXTURES / "photo512_q10_420.jpg",
+            "1.23MP": MID_JPEGS[0], "3072x2048": SMOKE_JPEG}[point]
+    img = read_jpeg(path)
+    datas, quants, samps = _args(img)
+    args = (datas, quants, samps, 0.3, [0.001] * 3, 50)
+    saved = iter_step.fused_solve.launches
+    _, _, carry = solver.solve_steps(*args, nsteps=3, device=DEVICE,
+                                     tier="mega")
+    iter_step.fused_solve.launches = saved
+    prob = solver._build_problem(datas, quants, samps, 0.3, [0.001] * 3, 50,
+                                 True, torch.device(DEVICE))
+    factors, _ = iter_step.fista_factors(carry[4], 50)
+    return (carry[0], carry[1], list(carry[2]), factors, prob.step_size,
+            prob.dats_c, prob.qs_c, prob.pa_sss, prob.samps, 0.3), None
+
+
+def lite_state(args):
+    """K3's f32 arguments in the lite state: d = bf16(f - fista), devq
+    bf16."""
+    import torch
+
+    return ((args[0], (args[0] - args[1]).to(torch.bfloat16),
+             [x.to(torch.bfloat16) for x in args[2]]) + tuple(args[3:]))
+
+
+def k3_bounds(args, ext, lite):
+    """(bound ms of the launch, streaming ms per iteration) of K3 on these
+    arguments: _bound_k3 per image, and the state through device memory
+    every iteration (32 B per pixel and channel in f32, 22 lite, plus 14 /
+    10 B per coefficient)."""
+    f = args[0]
+    B = f.shape[0] if ext is not None else 1
+    H, W = f.shape[-2:]
+    samps, prob = args[8], [p != 0.0 for p in args[7]]
+    C = len(samps)
+    nb, ops = _bound_k3(C, H, W, samps, prob, len(args[3]), lite)
+    bound = max(nb * B / PEAK_BYTES, ops * B / PEAK_F32) * 1e3
+    coefs = sum(H // sy * (W // sx) for sy, sx in samps)
+    stream = B * ((22 if lite else 32) * C * H * W + (10 if lite else 14)
+                  * coefs)
+    return bound, stream / PEAK_BYTES * 1e3
+
+
+def phase_k3_points(card, images):
+    """K3 and K3 lite alone at the four points where K3 runs, on real
+    solver states: 50-iteration launches between CUDA events (median of
+    20; 5 at 3072x2048), beside the design-independent bound and the
+    per-iteration streaming figure; the solver's set-up at photo512 (what
+    the tier sweep's per-iteration figure includes besides the kernel)."""
+    import torch
+
+    from jpeg2png_tpu_torch.io import read_jpeg
+    from jpeg2png_tpu_torch.kernels import iter_step
+    from jpeg2png_tpu_torch.models import solver
+
+    img = read_jpeg(FIXTURES / "photo512_q10_420.jpg")
+    datas, quants, samps = _args(img)
+    solver._build_problem(datas, quants, samps, 0.3, [0.001] * 3, 50, True,
+                          torch.device(DEVICE))                  # warm
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    solver._build_problem(datas, quants, samps, 0.3, [0.001] * 3, 50, True,
+                          torch.device(DEVICE))
+    end.record()
+    torch.cuda.synchronize()
+    setup = start.elapsed_time(end)
+    log(f"  photo512 solver set-up (upload, initial decode, boxes): "
+        f"{setup:.4f} ms  [{card}]")
+    chunk = bucket_chunk(images)
+    points = {"photo512_setup_ms": setup}
+    for point in K3_POINTS:
+        a32, ext = k3_point_args(point, chunk)
+        kw = {} if ext is None else {"extents": ext}
+        for lite in (False, True):
+            fn = iter_step.fused_solve_lite if lite else iter_step.fused_solve
+            a = lite_state(a32) if lite else a32
+            saved = fn.launches
+            ms = cuda_ms(lambda: fn(*a, **kw),
+                         5 if point == "3072x2048" else 20)
+            fn.launches = saved            # timing launches are not path ones
+            bound, stream = k3_bounds(a, ext, lite)
+            H, W = a[0].shape[-2:]
+            B = a[0].shape[0] if ext is not None else 1
+            pl = iter_step.launch_plan(B, 3, H, W, a[8],
+                                       [p != 0.0 for p in a[7]], 0.3, lite)
+            name = f"{point} {'lite' if lite else 'f32'}"
+            points[name] = {"ms": ms, "ms_per_iter": ms / len(a[3]),
+                            "bound_ms": bound, "stream_ms_per_iter": stream,
+                            "plan": pl}
+            log(f"  K3 {name} [B={B}, {H}x{W}]: {ms:.4f} ms per 50-iteration "
+                f"launch = {ms / len(a[3]):.4f} ms per iteration (bound "
+                f"{bound:.4f} ms per launch; streaming {stream:.4f} ms per "
+                f"iteration; grid {pl['G']} x {pl['k']} cell(s) of "
+                f"{pl['rows']} rows, scratch "
+                f"{'in shared memory' if pl['resident'] else 'global'})  "
+                f"[{card}]")
+        del a32, a
+        torch.cuda.empty_cache()
+    return points
 
 
 # ------------------------------------------------ the lite family (K4, K5)
@@ -1181,6 +1432,19 @@ def phase_goldens():
         _expect(read_counts(),
                 tier_launches(tier, 3 + 5 if mega else 3 * 50 + 5),
                 f"goldens ({tier} tier)")
+
+    # the converged golden (-i 1000) through the whole-solve tiers
+    converged = {}
+    for tier in ("mega", "mega-lite"):
+        zero_counts()
+        p = converged[tier] = golden_i1000(tier)
+        _expect(read_counts(), tier_launches(tier, 1),
+                f"photo512 -i 1000 ({tier} tier)")
+        log(f"  golden photo512_q10_420 i1000 ({tier} tier): PSNR {p:.2f} dB "
+            f"(gate {GOLDEN_I1000_DB[tier]} dB)")
+        require(p > GOLDEN_I1000_DB[tier],
+                f"golden photo512 i1000 ({tier}): PSNR {p:.2f} dB")
+    return converged
 
 
 def _bytes_k1(C, P, H, W, halo=False):
@@ -2254,9 +2518,10 @@ def main() -> int:
     errs["fused_grad_striped"], errs["fused_project"] = striped_kernel_cases(
         np.random.default_rng(1))
     log("phase 5: goldens, every tier")
-    phase_goldens()
+    converged = phase_goldens()
     log("phase 6: single image, 3072x2048 4:2:0 default flags, every tier")
     records, single = phase_main_path(card, errs)
+    k3_points = phase_k3_points(card, images)
     sweep = phase_tier_sweep(card)
     log("phase 7: serving, cli --tpu-batch on the 48-file corpus")
     serving = phase_serving(card, files, images)
@@ -2270,6 +2535,7 @@ def main() -> int:
     striped_records, striped = phase_striped(card, errs)
     records += striped_records
     log(json.dumps({"card": card, "build_s": build_s, "single": single,
+                    "golden_i1000_psnr": converged, "k3_points": k3_points,
                     "tier_sweep": sweep,
                     "serving": {k: v[1] for k, v in serving.items()},
                     "striped": striped,

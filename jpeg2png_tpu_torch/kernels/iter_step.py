@@ -31,15 +31,21 @@ So the plain version below runs exactly the two-kernel body's
 arithmetic, with the prob term carried at coefficient resolution.
 
 CUDA version: csrc/iter_step.cu, one persistent cooperative launch per
-(image chunk, iteration chunk).  What bounds it on an H100: memory.  Per
-iteration it reads f, fista (gradient phase, with halos from the
-caches) and writes grad, then reads f, fista, grad and writes f, fista:
-32 B per pixel and channel, plus the int16 and quant rasters and devq
-read and write at coefficient resolution.  A bucket whose state fits in
-the 50 MB L2 cache can beat that device-memory bound.  What the design
-does about it: nothing beyond K1 + K2 yet (the state goes through
-device memory every iteration); it removes the per-iteration launches
-and host work, which bound small images.
+(image chunk, iteration chunk).  What bounds it on an H100: memory for
+buckets larger than the 50 MB L2, latency below that.  Per iteration
+the state streams f and fista through the gradient phase (read) and the
+projection (read and write): 24 B per pixel and channel, plus the
+gradient written and read (8 B) unless it stays on chip.  What the
+design does about it: each image is cut into cells of CELL_W = 128
+columns and a run of rows aligned to the coefficient blocks; a block
+owns its cells for the whole launch, marches their rows with K1's
+row-marching stencil, keeps their gradient and the prob window
+p_alpha * idct(devq) at coefficient resolution in its own scratch
+(shared memory when the cells fit there at one wave of blocks, else a
+global array only that block reads), and projects the same cells, one
+thread per coefficient column with the 8x8 transforms in registers and
+warp shuffles.  The grid, the rows per cell and the scratch come from
+the library (`launch_plan`, j2p_fused_solve_plan); `plan` mirrors them.
 
 Lite mode (fused_solve(..., lite=True), and fused_solve_lite on the
 bf16 state itself) replaces the TPU kernel's `lite=True`
@@ -266,7 +272,8 @@ def fused_iteration(fdatas, fistas, devqs, factor, step_size, datas_i16,
 
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 6          # f, fista (lite: d), grad, factors, extents, steps
+    [ctypes.c_void_p] * 6          # f, fista (lite: d), scratch, factors,
+                                   # extents, steps
     + [ctypes.c_void_p] * 3        # partials out, gpart, dpart
     + [ctypes.POINTER(ctypes.c_uint64),   # per channel data, q, devq
        ctypes.POINTER(ctypes.c_int),      # per channel sy, sx, devq index
@@ -277,6 +284,16 @@ _ARGTYPES = (
     + [ctypes.c_void_p]            # stream
 )
 
+# csrc/iter_step.cu: output columns of a cell, threads of a block (a
+# thread per column and a helper warp), the shortest cell, the dynamic
+# shared memory a block may take
+CELL_W = 128
+BLOCK_THREADS = CELL_W + 32
+MIN_CELL_ROWS = 16
+MAX_SMEM = 226 * 1024
+PLAN_KEYS = ("G", "k", "rows", "resident", "scratch_bytes", "cells",
+             "phase_bytes", "cell_bytes")
+
 
 def _launcher():
     lib = _build.library("iter_step")
@@ -284,21 +301,109 @@ def _launcher():
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-        grid = lib.j2p_fused_solve_grid
-        grid.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-        grid.restype = ctypes.c_int
+        pl = lib.j2p_fused_solve_plan
+        pl.argtypes = ([ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+                       + [ctypes.c_int] * 2
+                       + [ctypes.POINTER(ctypes.c_longlong)])
+        pl.restype = ctypes.c_int
+        for name, n in (("j2p_fused_solve_occupancy", 4),
+                        ("j2p_fused_solve_ring_bytes", 3)):
+            getattr(lib, name).argtypes = [ctypes.c_int] * n
+            getattr(lib, name).restype = ctypes.c_int
     return lib, fn
 
 
-def grid_blocks(C: int, weight: float, lite: bool = False) -> int:
-    """Blocks of the cooperative launch (co-resident blocks per SM times
-    the SMs) for this channel count, TGV2 setting and mode."""
+def _channel_ints(samps, prob):
+    """(sy, sx, prob index) per channel, as the C interface takes them."""
+    ints = (ctypes.c_int * (3 * len(samps)))()
+    k = 0
+    for c, ((sy, sx), p) in enumerate(zip(samps, prob)):
+        ints[3 * c:3 * c + 3] = [sy, sx, k if p else -1]
+        k += bool(p)
+    return ints
+
+
+def proj_bytes(C: int, samps) -> int:
+    """Shared memory of the projection's band of 8 * max(sy) rows: tiles
+    [C, rows, CELL_W] of the old f, the side values, the gradient and (in
+    lite mode) fmid, 12 bytes a pixel and channel in both modes."""
+    return 12 * C * max(8 * sy for sy, _ in samps) * CELL_W
+
+
+def plan(B, C, H, W, samps, prob, lite, ring_bytes, occupancy, sms):
+    """The decomposition of a K3 launch, as csrc/iter_step.cu make_plan
+    chooses it: cells of CELL_W columns and `rows` rows (a multiple of 8 *
+    max(sy), at least MIN_CELL_ROWS) sized so that the cells are about one
+    wave of co-resident blocks; block g owns cells [g k, g k + k).  The
+    scratch (each cell's gradient [C, rows, CELL_W] in the side type and
+    its prob windows [rows/sy, CELL_W/sx] f32) is resident in shared
+    memory when a block with one cell's scratch still lets every cell's
+    block be co-resident.  `ring_bytes`: the gradient phase's shared
+    memory (the library's, j2p_fused_solve_ring_bytes); `occupancy(bytes)`:
+    co-resident blocks per SM with that much dynamic shared memory; `sms`:
+    the card's SMs.  Returns a dict with PLAN_KEYS."""
+    ay = max(8 * sy for sy, _ in samps)
+    phase = max(ring_bytes, proj_bytes(C, samps))
+    slots = occupancy(phase) * sms
+    strips = -(-W // CELL_W)
+    target = max(1, slots // (B * strips))
+    rows = max(MIN_CELL_ROWS, -(-H // target))
+    rows = -(-rows // ay) * ay
+    cells = B * strips * -(-H // rows)
+    grad = C * rows * CELL_W * (2 if lite else 4)
+    cell = grad + 4 * sum((rows // sy) * (CELL_W // sx)
+                          for (sy, sx), p in zip(samps, prob) if p)
+    k, resident = -(-cells // slots), False
+    if phase + cell <= MAX_SMEM and occupancy(phase + cell) * sms >= cells:
+        k, resident = 1, True
+    G = -(-cells // k)
+    return {"G": G, "k": k, "rows": rows, "resident": resident,
+            "scratch_bytes": 0 if resident else G * k * cell,
+            "cells": cells, "phase_bytes": phase, "cell_bytes": cell}
+
+
+def launch_plan(B, C, H, W, samps, prob, weight, lite=False,
+                lib=None) -> dict:
+    """The library's decomposition of a launch on the current card (the
+    grid, the scratch; PLAN_KEYS).  `lib`: the loaded library (default:
+    the package's)."""
+    lib = _launcher()[0] if lib is None else lib
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    _build.check(lib, lib.j2p_fused_solve_plan(
+        B, C, H, W, _channel_ints(samps, prob), int(weight != 0.0),
+        int(lite), out), "fused_solve plan")
+    vals = dict(zip(PLAN_KEYS, (int(v) for v in out)))
+    vals["resident"] = bool(vals["resident"])
+    return vals
+
+
+def launch_buffers(pl, B, C, P, device):
+    """The scratch of a launch as its plan sizes it: (the blocks' global
+    scratch, uint8 [scratch_bytes] or None when it is resident in shared
+    memory; per-block gradient sums [B, G, C + 2]; per-block distance sums
+    [2, B, G, max(P, 1)], two iterations' worth)."""
+    G = pl["G"]
+    scratch = (torch.empty((pl["scratch_bytes"],), dtype=torch.uint8,
+                           device=device) if pl["scratch_bytes"] else None)
+    return (scratch, torch.empty((B, G, C + 2), device=device),
+            torch.empty((2, B, G, max(P, 1)), device=device))
+
+
+def library_plan_inputs(C, weight, lite):
+    """(ring_bytes, occupancy(bytes), sms) of `plan` from the library and
+    the current card: what make_plan itself uses."""
     lib, _ = _launcher()
-    n = ctypes.c_int(0)
-    _build.check(lib, lib.j2p_fused_solve_grid(
-        C, int(weight != 0.0), int(lite), ctypes.byref(n)),
-        "fused_solve grid")
-    return n.value
+    tgv = int(weight != 0.0)
+    ring = lib.j2p_fused_solve_ring_bytes(C, tgv, int(lite))
+
+    def occupancy(nbytes):
+        n = lib.j2p_fused_solve_occupancy(C, tgv, int(lite), int(nbytes))
+        if n < 0:
+            _build.check(lib, -n, "fused_solve occupancy")
+        return n
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    return ring, occupancy, sms
 
 
 def _check(t, name, shape, dtype, device):
@@ -319,7 +424,8 @@ def _launch(f0s, side0s, devq0s, factors, step_size, datas_i16, q_rs,
                                             q_rs, extents)
     B, C, H, W = fb.shape
     side_t = torch.bfloat16 if lite else torch.float32
-    P = sum(1 for p in p_alpha_sss if p != 0.0)
+    prob = [p != 0.0 for p in p_alpha_sss]
+    P = sum(prob)
     if (len(samps) != C or len(datas) != C or len(qs) != C
             or len(p_alpha_sss) != C or len(devqs) != P):
         raise ValueError("fused_solve: per-channel argument counts differ")
@@ -350,7 +456,6 @@ def _launch(f0s, side0s, devq0s, factors, step_size, datas_i16, q_rs,
     f_out = fb.clone()
     side_out = sideb.clone()
     ptrs = (ctypes.c_uint64 * (3 * C))()
-    ints = (ctypes.c_int * (3 * C))()
     pas = (ctypes.c_float * C)()
     dq_out = []
     k = 0
@@ -360,29 +465,27 @@ def _launch(f0s, side0s, devq0s, factors, step_size, datas_i16, q_rs,
         _check(qs[c], f"q_rs[{c}]", shp, torch.float32, dev)
         ptrs[3 * c] = datas[c].data_ptr()
         ptrs[3 * c + 1] = qs[c].data_ptr()
-        if p_alpha_sss[c] != 0.0:
+        if prob[c]:
             _check(devqs[k], f"devq0s[{k}]", shp, side_t, dev)
             d = devqs[k].clone()
             dq_out.append(d)
             ptrs[3 * c + 2] = d.data_ptr()
-            ints[3 * c:3 * c + 3] = [sy, sx, k]
             k += 1
-        else:
-            ints[3 * c:3 * c + 3] = [sy, sx, -1]
         pas[c] = p_alpha_sss[c] / (sy * sx)
     partials = torch.zeros((B, nsteps, PARTIAL_COLS), device=dev)
     if nsteps:
-        G = grid_blocks(C, weight, lite)
-        grad = torch.empty_like(side_out)
-        gpart = torch.empty((G, B, C + 2), device=dev)
-        dpart = torch.empty((G, B, max(P, 1)), device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        # grid and scratch as the library plans them for this card
         lib, fn = _launcher()
-        err = fn(f_out.data_ptr(), side_out.data_ptr(), grad.data_ptr(),
+        pl = launch_plan(B, C, H, W, samps, prob, weight, lite, lib)
+        scratch, gpart, dpart = launch_buffers(pl, B, C, P, dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(f_out.data_ptr(), side_out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(),
                  factors.data_ptr(), ext.data_ptr(), steps.data_ptr(),
                  partials.data_ptr(), gpart.data_ptr(), dpart.data_ptr(),
-                 ptrs, ints, pas, B, C, H, W, nsteps, G,
-                 1.0 / math.sqrt(C), (weight / math.sqrt(2.0)) / math.sqrt(C),
+                 ptrs, _channel_ints(samps, prob), pas, B, C, H, W, nsteps,
+                 pl["G"], 1.0 / math.sqrt(C),
+                 (weight / math.sqrt(2.0)) / math.sqrt(C),
                  int(weight != 0.0), int(lite), stream)
         _build.check(lib, err, "fused_solve")
     if extents is None:

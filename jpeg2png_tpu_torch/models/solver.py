@@ -112,16 +112,20 @@ TIERS = ("mega", "mega-lite", "two-lite", "two")
 # The tier gates: the largest canvas (pixels) each tier takes, tried in
 # the order mega -> mega-lite -> two-lite, else two.  Set from the card's
 # tier sweep (chip_smoke.py phase 6: 50-iteration solves of 0.26, 1.23,
-# 3.15, 6.29 and 8.0 MP photos through every tier on an H100, three
-# calls; PERF.md).  A lite tier takes a size only where it beats every
-# f32 tier by at least LITE_MIN_GAIN in every call: its bf16 side state
-# costs 0.05-0.9 dB of agreement with the reference's goldens.  None
-# did: mega-lite took 0.96-1.11x mega's time; two-lite beat the f32
-# tiers by 13% at 3.15 MP in one call and took 1.20-1.23x the two tier's
-# time in the other two (the two tier's host floor there moves 0.37-0.55
-# ms per iteration between calls), and 1.19-1.27x at 6.29 and 8.0 MP (K4
-# runs at 8.7x its bytes bound).  So both lite gates are closed (0); the
-# mega gate is the last size where mega won, rounded to 1280x1024.
+# 3.15, 6.29 and 8.0 MP photos through every tier on an H100), moved only
+# where two calls on the same kernels agree (PERF.md).  With K3 on cells
+# (two calls, ms per iteration, set-up included): mega beat two at 0.26
+# MP (0.120 / 0.118 vs 0.452 / 0.546) and 1.23 MP (0.245 / 0.240 vs
+# 0.629 / 0.477); at 3.15 MP the calls disagree (mega 0.432 vs two 0.389,
+# mega 0.410 vs two 0.488: the two tier's host floor moves between
+# calls); two won at 6.29 MP (0.543 / 0.573 vs mega 0.722 / 0.718) and
+# 8.0 MP (0.664 / 0.666 vs 0.885 / 0.899).  So the mega gate stays at the
+# last size both calls give it, rounded to 1280x1024.  A lite tier takes
+# a size only where it beats every f32 tier by at least LITE_MIN_GAIN in
+# every call: its bf16 side state costs 0.05-0.9 dB of agreement with the
+# reference's goldens.  None did: mega-lite beat the fastest f32 tier by
+# at most 8% (1.23-3.15 MP) and lost at the other sizes, two-lite never
+# led, so both lite gates stay closed (0).
 LITE_MIN_GAIN = 0.10
 MEGA_MAX_PIXELS = 1280 * 1024
 MEGA_LITE_MAX_PIXELS = 0

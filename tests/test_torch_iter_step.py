@@ -393,12 +393,26 @@ def test_torch_fused_solve_never_runs_plain_on_cuda_tensors(monkeypatch):
     assert iter_step.fused_solve.launches == before
 
 
+S420 = [(1, 1), (2, 2), (2, 2)]
+
+
 @pytest.mark.parametrize("B,samps,prob,weight,H,W,exts,nsteps", [
-    (1, [(1, 1), (2, 2), (2, 2)], [True] * 3, 0.3, 64, 96, None, 1),
+    (1, S420, [True] * 3, 0.3, 64, 96, None, 1),
     (1, [(1, 1), (1, 4), (1, 4)], [True, False, True], 0.5, 48, 128, None, 2),
-    (2, [(1, 1), (2, 2), (2, 2)], [True] * 3, 0.3, 128, 128,
-     [(96, 112), (128, 80)], 3),
+    (2, S420, [True] * 3, 0.3, 128, 128, [(96, 112), (128, 80)], 3),
     (1, [(1, 1)], [True], 0.0, 40, 56, None, 2),
+    # where the kernel's cells have edges: narrower than a cell, a ragged
+    # last strip, W = 512, extents on and past cell boundaries, 8 images,
+    # C = 4, 4:4:0, 4:1:1 with the luma prob term off
+    (1, S420, [True] * 3, 0.3, 80, 48, None, 3),
+    (1, S420, [True] * 3, 0.3, 48, 336, None, 3),
+    (1, S420, [True] * 3, 0.3, 64, 512, None, 3),
+    (2, S420, [True] * 3, 0.3, 192, 256, [(32, 256), (48, 224)], 3),
+    (8, S420, [True] * 3, 0.3, 64, 128,
+     [(16 + 16 * (b % 2), 32 + 16 * (b % 6)) for b in range(8)], 3),
+    (1, [(1, 1)] * 4, [True, False, True, False], 0.3, 64, 136, None, 3),
+    (1, [(1, 1), (2, 1), (2, 1)], [True] * 3, 0.3, 96, 160, None, 3),
+    (1, [(1, 1), (1, 4), (1, 4)], [False, True, True], 0.0, 48, 256, None, 3),
 ])
 def test_torch_cuda_fused_solve_matches_plain(cuda_device, B, samps, prob,
                                               weight, H, W, exts, nsteps):
@@ -406,7 +420,7 @@ def test_torch_cuda_fused_solve_matches_plain(cuda_device, B, samps, prob,
     f and fista within 1e-5 of their magnitude (the transforms sum in
     another order), devq within 2e-6 of the coefficients' magnitude,
     every row's sumsq/tv/tv2 rtol 1e-5 and distances rtol 1e-4, bucket
-    padding exactly 0."""
+    padding exactly 0, also where the kernel's cells have edges."""
     rng = np.random.default_rng(10)
     probs = [_problem(rng, H, W, samps, prob, None if exts is None
                       else exts[b]) for b in range(B)]
@@ -444,4 +458,127 @@ def test_torch_cuda_fused_solve_matches_plain(cuda_device, B, samps, prob,
                                rtol=1e-4 * nsteps, atol=0)
     if exts:
         for b, (h, w) in enumerate(exts):
-            assert not got[0][b, :, h:].any() and not got[0][b, :, :, w:].any()
+            for t in (got[0][b], got[1][b]):
+                assert not t[:, h:].any() and not t[:, :, w:].any()
+
+
+# ------------------------------------------------- K3's cells and scratch
+
+def _occupancy(nbytes):
+    """Blocks per SM with `nbytes` of dynamic shared memory, at most 3 (the
+    kernel's register cap), 227 KB an SM and 1 KB each for the runtime."""
+    return min(3, 232448 // (nbytes + 1024))
+
+
+PLAN_CASES = [
+    # photo512: the projection's band (tiles of 12 bytes a pixel, 3 x 16 x
+    # 128 pixels: 73728 bytes) outgrows the rings; 4 strips, 396
+    # slots -> 99 segments wanted, so 16-row cells (128 of them); a cell's
+    # scratch 24576 + 12288 bytes lets 2 blocks an SM, 264 >= 128: resident
+    ((1, 3, 512, 512, S420, [True] * 3, False, 42336, 132),
+     dict(G=128, k=1, rows=16, resident=True, scratch_bytes=0, cells=128,
+          phase_bytes=73728, cell_bytes=36864)),
+    # the 1.23 MP sweep image: 10 strips, 39 segments wanted -> ceil(960 /
+    # 39) = 25 -> 32 rows, 300 cells of 73728 bytes: one block an SM then,
+    # so the scratch is global
+    ((1, 3, 960, 1280, S420, [True] * 3, False, 42336, 132),
+     dict(G=300, k=1, rows=32, resident=False, scratch_bytes=300 * 73728,
+          cells=300, phase_bytes=73728, cell_bytes=73728)),
+    # the dyn 1024x1280 chunk in lite mode: 9 segments wanted -> 114 -> 128
+    # rows; 196608-byte cells exceed a block's shared memory with the band
+    ((4, 3, 1024, 1280, S420, [True] * 3, True, 38000, 132),
+     dict(G=320, k=1, rows=128, resident=False, scratch_bytes=320 * 196608,
+          cells=320, phase_bytes=73728, cell_bytes=196608)),
+    # more cells than slots (one SM): 4 cells of 64 rows over 3 slots, two
+    # a block
+    ((1, 3, 64, 512, S420, [True] * 3, False, 42336, 1),
+     dict(G=2, k=2, rows=64, resident=False, scratch_bytes=2 * 2 * 147456,
+          cells=4, phase_bytes=73728, cell_bytes=147456)),
+    # one channel, 8-row blocks: cells of at least 16 rows (16, 16, 8); the
+    # rings outgrow the 8-row band (12288 bytes)
+    ((1, 1, 40, 56, [(1, 1)], [True], False, 15000, 132),
+     dict(G=3, k=1, rows=16, resident=True, scratch_bytes=0, cells=3,
+          phase_bytes=15000, cell_bytes=16384)),
+    # 4:1:1 with one prob channel off: the rings outgrow the 8-row band
+    # (36864 bytes); windows of the two prob channels only (2048 + 512
+    # floats)
+    ((1, 3, 48, 256, [(1, 1), (1, 4), (1, 4)], [True, False, True], False,
+      42336, 132),
+     dict(G=6, k=1, rows=16, resident=True, scratch_bytes=0, cells=6,
+          phase_bytes=42336, cell_bytes=34816)),
+]
+
+
+@pytest.mark.parametrize("args,want", PLAN_CASES)
+def test_torch_k3_plan_mirror(args, want):
+    """kernels/iter_step.py::plan, the CPU mirror of csrc/iter_step.cu
+    make_plan, against decompositions counted by hand: cells of 128
+    columns, rows a multiple of 8 * max(sy) and at least 16 sized so that
+    the cells are about one wave of co-resident blocks, the scratch in
+    shared memory when every cell's block still fits co-resident with it."""
+    B, C, H, W, samps, prob, lite, ring, sms = args
+    assert iter_step.plan(B, C, H, W, samps, prob, lite, ring, _occupancy,
+                          sms) == want
+
+
+class _FakeSolveLib:
+    """The plan entry point of the K3 library, answering `vals` (PLAN_KEYS
+    order) or the CUDA error `err`, and its error string."""
+
+    def __init__(self, vals, err=0):
+        self.asked = []
+
+        def plan(B, C, H, W, ints, tgv, lite, out):
+            self.asked.append((B, C, H, W, list(ints[:3 * C]), tgv, lite))
+            for i, v in enumerate(vals):
+                out[i] = v
+            return err
+        self.j2p_fused_solve_plan = plan
+
+        def error_string(err):
+            return b"invalid argument"
+        self.j2p_error_string = error_string
+
+
+def test_torch_k3_scratch_is_what_the_library_plans():
+    """K3's wrapper takes the grid and the scratch from the library's plan
+    (j2p_fused_solve_plan, which knows the card's occupancy): the blocks'
+    global scratch of the planned bytes (none when resident), the gradient
+    sums [B, G, C + 2] and the two iterations' distance sums [2, B, G,
+    max(P, 1)]; the library's error raises."""
+    lib = _FakeSolveLib([5, 2, 32, 0, 1000, 9, 42336, 100])
+    pl = iter_step.launch_plan(2, 3, 96, 256, S420, [True, False, True],
+                               0.3, True, lib)
+    assert pl == dict(G=5, k=2, rows=32, resident=False, scratch_bytes=1000,
+                      cells=9, phase_bytes=42336, cell_bytes=100)
+    assert lib.asked == [(2, 3, 96, 256, [1, 1, 0, 2, 2, -1, 2, 2, 1], 1, 1)]
+    scratch, gpart, dpart = iter_step.launch_buffers(pl, 2, 3, 2, "cpu")
+    assert scratch.shape == (1000,) and scratch.dtype == torch.uint8
+    assert gpart.shape == (2, 5, 5) and dpart.shape == (2, 2, 5, 2)
+    res = iter_step.launch_plan(1, 1, 40, 56, [(1, 1)], [False], 0.0, False,
+                                _FakeSolveLib([3, 1, 16, 1, 0, 3, 15000, 8]))
+    assert res["resident"] is True
+    scratch, gpart, dpart = iter_step.launch_buffers(res, 1, 1, 0, "cpu")
+    assert scratch is None and gpart.shape == (1, 3, 3)
+    assert dpart.shape == (2, 1, 3, 1)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        iter_step.launch_plan(1, 3, 64, 64, S420, [True] * 3, 0.3, False,
+                              _FakeSolveLib([0] * 8, err=1))
+
+
+def test_torch_cuda_k3_plan_mirror_matches_library(cuda_device):
+    """The mirror against the library on the card, with the library's ring
+    bytes and occupancy: the same decomposition for photo512, the sweep
+    image, the serving chunk, 3072x2048, an 8-image bucket, C = 4."""
+    for B, C, H, W, samps, prob, lite in (
+            (1, 3, 512, 512, S420, [True] * 3, False),
+            (1, 3, 960, 1280, S420, [True] * 3, True),
+            (4, 3, 1024, 1280, S420, [True] * 3, False),
+            (1, 3, 2048, 3072, S420, [True] * 3, True),
+            (8, 3, 192, 256, S420, [True] * 3, False),
+            (1, 4, 64, 136, [(1, 1)] * 4, [True, False, True, False],
+             False)):
+        want = iter_step.plan(B, C, H, W, samps, prob, lite,
+                              *iter_step.library_plan_inputs(C, 0.3, lite))
+        assert iter_step.launch_plan(B, C, H, W, samps, prob, 0.3,
+                                     lite) == want
