@@ -1264,6 +1264,53 @@ def _k3_lite_random_case(rng, label, B, H, W, samps, prob, weight, nsteps,
                             extents=ext)
 
 
+def k4_edge_cases(rng):
+    """The CPU mirror of K4's grid (stripe_grad.lite_partial_rows) against
+    the library's, then K4 where its row-marching grid and its prob
+    windows have edges: 3 strips with a ragged last one (W = 512, 4:2:0;
+    W = 520, 4:4:0, where the last strip holds one coefficient block), 4:1:1
+    at W = 1024 (strip edges inside 32-column blocks), heights over many
+    segments whose boundaries fall inside a block row of the sy = 2
+    channels, dynamic extents that end on and past a strip boundary, and
+    the striped lite body's band [3, 2048, 12288] with random halos at
+    row0 = 2048, with and without a prob term."""
+    from jpeg2png_tpu_torch.kernels import stripe_grad
+
+    lib, _ = stripe_grad._launcher()
+    slots = lib.j2p_grad_lite_partial_rows(3, 1, 1 << 24, 8)
+    for L, W in ((2048, 3072), (2048, 12288), (1504, 512), (64, 520),
+                 (8, 8)):
+        rows = lib.j2p_grad_lite_partial_rows(3, 1, L, W)
+        mirror = stripe_grad.lite_partial_rows(L, W, slots)
+        require(rows == mirror, f"K4 grid of {L}x{W}: the library's {rows} "
+                f"partial rows, the mirror's {mirror}")
+    # the 1504-row cases start segments inside a block row of sy = 2
+    seg = stripe_grad.lite_segment_rows(3, True, 1504, 512)
+    require(seg < 1504 and seg % 16 != 0,
+            f"K4 edge cases: 1504 x 512 segments of {seg} rows start on "
+            "16-row block rows only")
+    return [
+        _k4_case(rng, "4:2:0", [True] * 3, 0.3, 64, 512),
+        _k4_case(rng, "4:4:0", [True, False, True], 0.3, 64, 520,
+                 ext=(60, 515)),
+        _k4_case(rng, "4:4:0", [False] * 3, 0.3, 64, 520, row0=64,
+                 h_pad=192, halo=True),
+        _k4_case(rng, "4:1:1", [True] * 3, 0.3, 64, 1024, row0=64,
+                 h_pad=256, halo=True),
+        _k4_case(rng, "4:1:1", [False] * 3, 0.5, 64, 1024),
+        _k4_case(rng, "4:2:0", [True] * 3, 0.3, 1504, 512),
+        _k4_case(rng, "4:2:0", [False] * 3, 0.3, 1504, 512, ext=(1500, 510)),
+        _k4_case(rng, "4:2:0", [True] * 3, 0.3, 128, 512, ext=(120, 254),
+                 dynamic=True),
+        _k4_case(rng, "4:2:0", [True, False, True], 0.3, 128, 512,
+                 ext=(128, 300), dynamic=True),
+        _k4_case(rng, "4:2:0", [True] * 3, 0.3, 2048, 12288, row0=2048,
+                 h_pad=8192, halo=True),
+        _k4_case(rng, "4:2:0", [False] * 3, 0.3, 2048, 12288, row0=2048,
+                 h_pad=8192, halo=True),
+    ]
+
+
 def lite_kernel_cases(rng, bucket, exts):
     """K4, K5 and K3's lite mode against their plain versions: the
     geometries of the two-lite tier and of serving, odd ones, and the
@@ -1285,7 +1332,7 @@ def lite_kernel_cases(rng, bucket, exts):
         _k4_case(rng, "4:4:4", [True] * 3, 0.3, 40, 72),
         _k4_case(rng, "C=1", [True], 0.0, 40, 56, row0=8, h_pad=64,
                  ext=(57, 50), halo=True),
-    ]
+    ] + k4_edge_cases(rng)
     k5 = [
         _k5_case(rng, "4:2:0", 2048, 3072, [True] * 3),
         _k5_case(rng, "4:2:0", 2048, 3072, [False] * 3),

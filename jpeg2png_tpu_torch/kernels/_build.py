@@ -42,7 +42,7 @@ LIBRARIES = {
     "project_step": ("project_step.cu", []),
     # the whole solve (K3): its gradient tile is K1's, so the same rule
     "iter_step": ("iter_step.cu", ["-fmad=false"]),
-    # the lite band gradient (K4): K1's tile, the same rule
+    # the lite band gradient (K4): K1's march, the same rule
     "stripe_grad": ("stripe_grad.cu", ["-fmad=false"]),
     # the lite projection (K5): K2's transforms, fused multiply-adds on
     "project_lite": ("project_lite.cu", []),

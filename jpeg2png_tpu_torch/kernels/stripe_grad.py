@@ -43,15 +43,22 @@ the dyn2 serving class run it on the whole canvas as one band, row0 = 0,
 halos None.
 
 CUDA version: csrc/stripe_grad.cu.  What bounds it on an H100: memory.
-It reads f (f32), d (bf16) and devq (bf16) and writes the gradient in
-bf16: 10 B per pixel and channel (plus 2 B per prob coefficient) against
-~150 flops per pixel.  What the design does about it: K1's tile (each
-16 x 32 block stages e for all channels with the stencil's 2-pixel halo
-and computes every per-pixel term of the gather once in shared memory),
-with K3's prob expansion (the devq blocks under the tile, transformed in
-shared memory); nothing but the inputs and outputs touches device
-memory.  Partial sums go to one row per block, reduced in a fixed order
-by a second kernel (no float atomics).
+It reads f (f32) and d (bf16) and writes the gradient in bf16: 8 B per
+pixel and channel, plus 2 B per prob coefficient (devq, bf16), against
+~150 flops per pixel and channel.  What the design does about it: K1's
+row-marching stencil (kernels/grad_step.py): blocks of 256 threads on
+strips of LITE_OUTW = 254 output columns and segments of rows walk down
+one row per step, f and d rows arriving by cp.async ahead of their use
+and every per-pixel term computed once.  The prob term is expanded inside
+the march: the devq block rows under a strip are copied ahead into shared
+memory and transformed once per 8 sy rows into a window of
+p_alpha * idct(devq) at coefficient resolution, which each gathered row
+reads; nothing but the inputs and outputs touches device memory.  Partial
+sums go to one row per block (strips x segments, about one wave of
+resident blocks: `lite_partial_rows`), reduced in a fixed order by a
+second kernel (no float atomics).  The library reports the number of
+rows (j2p_grad_lite_partial_rows) and the wrapper sizes its scratch from
+it.
 
 On a CPU tensor the wrapper runs the plain PyTorch version below; on a
 CUDA tensor it launches the kernel or raises.
@@ -72,9 +79,8 @@ from jpeg2png_tpu_torch.ops.resample import upsample_replicate
 from jpeg2png_tpu_torch.ops.tv_halo import band_stencil
 
 LEGAL_SAMPS = (1, 2, 4)
-# K4's own output tile (csrc/stripe_grad.cu TH, TW): one row of partial
-# sums per tile, so it sizes K4's scratch (K7's kernel has another grid)
-LITE_TILE_H, LITE_TILE_W = 16, 32
+LITE_OUTW, LITE_MIN_SEG = 254, 16   # csrc/stripe_grad.cu: output columns
+                                    # per strip, the shortest segment
 
 
 def _halo_rows(halos, C, W, device):
@@ -203,9 +209,17 @@ _ARGTYPES = (
 )
 
 
-def lite_partial_rows(L: int, W: int) -> int:
-    """Rows of K4's partial sums: one per LITE_TILE_H x LITE_TILE_W tile."""
-    return -(-L // LITE_TILE_H) * -(-W // LITE_TILE_W)
+def lite_partial_rows(L: int, W: int, slots: int) -> int:
+    """Rows of K4's partial sums on a band of L x W when `slots` blocks
+    are resident on the card (occupancy x SMs): strips of LITE_OUTW
+    columns times segments of rows, the segments sized so that the grid
+    is about one wave (at least LITE_MIN_SEG rows each).  Mirrors
+    csrc/stripe_grad.cu make_grid; the wrapper asks the library
+    (j2p_grad_lite_partial_rows), which knows the occupancy."""
+    strips = -(-W // LITE_OUTW)
+    target = max(1, slots // strips)
+    seg = max(LITE_MIN_SEG, -(-L // target))
+    return strips * -(-L // seg)
 
 
 def _launcher():
@@ -214,7 +228,27 @@ def _launcher():
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
+        for name in ("j2p_grad_lite_partial_rows",
+                     "j2p_grad_lite_segment_rows"):
+            rows = getattr(lib, name)
+            rows.argtypes = [ctypes.c_int] * 4
+            rows.restype = ctypes.c_int
     return lib, fn
+
+
+def lite_scratch(lib, C: int, tgv: bool, L: int, W: int,
+                 device) -> torch.Tensor:
+    """K4's partial-sum rows [n, C + 2], n as the library reports it for
+    this band on the current card."""
+    n = grad_step._ask(lib, "j2p_grad_lite_partial_rows", C, tgv, L, W)
+    return torch.empty((n, C + 2), device=device, dtype=torch.float32)
+
+
+def lite_segment_rows(C: int, tgv: bool, L: int, W: int) -> int:
+    """Rows per segment of K4's grid for a band of L x W on the current
+    card (the last segment may be shorter)."""
+    return grad_step._ask(_launcher()[0], "j2p_grad_lite_segment_rows", C,
+                          tgv, L, W)
 
 
 def _check(t, name, shape, dtype, device):
@@ -270,12 +304,14 @@ def fused_grad_striped_lite(fdatas, ds, devqs, halos, factor, row0,
             f"{h_pad}, samps={samps} is outside the kernel's gate")
     _check(f, "fdatas", (C, L, W), torch.float32, dev)
     _check(d, "ds", (C, L, W), torch.bfloat16, dev)
+    aligned = [("fdatas", f), ("ds", d)]
     halo_ptrs = [None] * 4
     if halos is not None:
         for j, (h, dt) in enumerate(zip(halos, (torch.float32,) * 2
                                         + (torch.bfloat16,) * 2)):
             h = stack_channels(h)
             _check(h, "halos", (C, HALO_ROWS, W), dt, dev)
+            aligned.append(("halos", h))
             halo_ptrs[j] = h.data_ptr()
     if extents is None:
         ext_ptr = None
@@ -295,14 +331,20 @@ def fused_grad_striped_lite(fdatas, ds, devqs, halos, factor, row0,
         if p_alpha_sss[c] != 0.0:
             dq = next(it)
             _check(dq, f"devqs[{c}]", (L // sy, W // sx), torch.bfloat16, dev)
+            aligned.append((f"devqs[{c}]", dq))
             ptrs[c] = dq.data_ptr()
             pas[c] = p_alpha_sss[c] / (sy * sx)
-    nblocks = lite_partial_rows(L, W)
+    # the kernel copies rows and devq blocks in 16-byte chunks
+    for name, t in aligned:
+        if t.data_ptr() % 16 != 0:
+            raise ValueError(
+                f"fused_grad_striped_lite: {name} is not 16-byte aligned")
+    lib, fn = _launcher()
     grad = torch.empty((C, L, W), device=dev, dtype=torch.bfloat16)
-    part = torch.empty((nblocks, C + 2), device=dev, dtype=torch.float32)
+    # sized for the current card, as the launch's grid is
+    part = lite_scratch(lib, C, weight != 0.0, L, W, dev)
     out = torch.empty((C + 2,), device=dev, dtype=torch.float32)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    lib, fn = _launcher()
     err = fn(f.data_ptr(), d.data_ptr(), *halo_ptrs, grad.data_ptr(),
              part.data_ptr(), out.data_ptr(), ext_ptr, ptrs, ints, pas,
              C, L, W, int(row0), HT, WT, float(factor), 1.0 / math.sqrt(C),

@@ -124,8 +124,16 @@ TIERS = ("mega", "mega-lite", "two-lite", "two")
 # a size only where it beats every f32 tier by at least LITE_MIN_GAIN in
 # every call: its bf16 side state costs 0.05-0.9 dB of agreement with the
 # reference's goldens.  None did: mega-lite beat the fastest f32 tier by
-# at most 8% (1.23-3.15 MP) and lost at the other sizes, two-lite never
-# led, so both lite gates stay closed (0).
+# at most 8% (1.23-3.15 MP) and lost at the other sizes, two-lite (K4
+# on its first, tiled design) never led: both lite gates closed (0).
+# With K4 as a row-marching
+# stencil (0.44 -> 0.20 ms at 3072x2048) two-lite leads the two tier
+# above the mega gate, but by less than LITE_MIN_GAIN where it counts
+# (two calls, ms per iteration, two-lite vs two): 3.15 MP 0.327 / 0.324
+# vs 0.342 / 0.338 (4.4%, 3.9%), 6.29 MP 0.534 / 0.523 vs 0.548 / 0.547
+# (2.6%, 4.4%), 8.0 MP 0.643 / 0.629 vs 0.681 / 0.707 (5.6%, 11.0%).
+# The gate moves only where both calls clear 10% at every size above
+# the mega gate up to it, and 3.15 MP fails in both: it stays 0.
 LITE_MIN_GAIN = 0.10
 MEGA_MAX_PIXELS = 1280 * 1024
 MEGA_LITE_MAX_PIXELS = 0

@@ -23,6 +23,8 @@ torch.set_num_threads(2)
 
 S420 = [(1, 1), (2, 2), (2, 2)]
 S422 = [(1, 1), (1, 2), (1, 2)]
+S411 = [(1, 1), (1, 4), (1, 4)]
+S440 = [(1, 1), (2, 1), (2, 1)]
 
 
 @pytest.fixture
@@ -80,6 +82,16 @@ K4_CASES = [
 ]
 
 
+# the same at W = 512 (3 of the CUDA kernel's 254-column strips, the last
+# ragged; the JAX kernel takes W % 128 == 0): 4:2:0, and 4:1:1, whose
+# 32-column blocks the strip edges cut
+K4_WIDE_CASES = [
+    # samps, prob, weight, L, row0, h_pad, h_true, w_true, halo, dynamic
+    (S420, [True, True, True], 0.3, 64, 64, 192, 180, 500, True, False),
+    (S411, [True, False, True], 0.3, 64, 0, 64, 64, 512, False, True),
+]
+
+
 @pytest.mark.parametrize(
     "samps,prob,weight,L,row0,h_pad,h_true,w_true,halo,dynamic", K4_CASES)
 def test_torch_plain_k4_matches_pallas(interpret_pallas, samps, prob, weight,
@@ -92,8 +104,26 @@ def test_torch_plain_k4_matches_pallas(interpret_pallas, samps, prob, weight,
     stencil reaches.  Gates of tests/test_two_lite.py:96-104: the bf16
     gradient within max|ref|/128 + 1e-4 (the JAX kernel expands devq with
     single-pass bf16 transforms, the port in f32), sums rtol 1e-5."""
+    _k4_vs_pallas(samps, prob, weight, L, 256, row0, h_pad, h_true, w_true,
+                  halo, dynamic)
+
+
+@pytest.mark.parametrize(
+    "samps,prob,weight,L,row0,h_pad,h_true,w_true,halo,dynamic",
+    K4_WIDE_CASES)
+def test_torch_plain_k4_wide_matches_pallas(interpret_pallas, samps, prob,
+                                            weight, L, row0, h_pad, h_true,
+                                            w_true, halo, dynamic):
+    """K4's plain version against the JAX package's kernel at W = 512,
+    4:2:0 and 4:1:1, with the gates of test_torch_plain_k4_matches_pallas."""
+    _k4_vs_pallas(samps, prob, weight, L, 512, row0, h_pad, h_true, w_true,
+                  halo, dynamic)
+
+
+def _k4_vs_pallas(samps, prob, weight, L, W, row0, h_pad, h_true, w_true,
+                  halo, dynamic):
     rng = np.random.default_rng(11)
-    C, W = len(samps), 256
+    C = len(samps)
     pa_ss = [0.36 * sy * sx if p else 0.0 for (sy, sx), p in zip(samps, prob)]
     f, d = _state(rng, C, L, W)
     devqs = _devqs(rng, L, W, samps, prob)
@@ -405,27 +435,71 @@ def _within_bf16_step(got, ref, extra):
     return bool(((got.float() - ref).abs() <= step + extra).all())
 
 
-def test_torch_cuda_k4_k5_match_plain(cuda_device):
-    """K4 and K5 on the card against their plain versions (chip_smoke.py
-    holds the full set of geometries): bf16 outputs within one bf16 step
-    of the element plus the f32 gate of the value before rounding (K1's
-    1e-5 of the gradient's magnitude; K2's 1e-5 of fnew's for dnew, and
-    of the coefficients' for devq), fnew within K2's gate, sums and
-    distances rtol 1e-5."""
-    rng = np.random.default_rng(17)
-    samps, C, H, W = S420, 3, 128, 256
-    f, d = _state(rng, C, H, W)
-    devqs = _devqs(rng, H, W, samps, [True] * 3)
-    pa_ss = [0.36 * sy * sx for sy, sx in samps]
+# K4 on the card: samps, prob, weight, L, W, row0, h_pad, (h_true,
+# w_true) or None, halo, dynamic.  The row-marching grid's edges: 3 strips
+# with a ragged last one (W = 512; W = 520 at 4:4:0), 4:1:1 at W = 1024
+# (strip edges inside 32-column blocks), many segments, dynamic extents
+# ending on and past a strip boundary, prob on and off
+K4_CUDA_CASES = [
+    (S420, [True] * 3, 0.3, 128, 256, 0, 128, None, False, False),
+    (S420, [True] * 3, 0.3, 64, 512, 64, 192, (180, 500), True, False),
+    (S440, [True, False, True], 0.3, 64, 520, 0, 64, (60, 515), False,
+     False),
+    (S440, [False] * 3, 0.3, 64, 520, 64, 192, None, True, False),
+    (S411, [True] * 3, 0.3, 64, 1024, 64, 256, None, True, False),
+    (S411, [False] * 3, 0.5, 64, 1024, 0, 64, None, False, False),
+    (S420, [True] * 3, 0.3, 1504, 512, 0, 1504, None, False, False),
+    (S420, [False] * 3, 0.3, 1504, 512, 0, 1504, (1500, 510), False, False),
+    (S420, [True] * 3, 0.3, 128, 512, 0, 128, (120, 254), False, True),
+    (S420, [True, False, True], 0.3, 128, 512, 0, 128, (128, 300), False,
+     True),
+]
+
+
+def _k4_cuda_case(rng, samps, prob, weight, L, W, row0, h_pad, ext, halo,
+                  dynamic):
+    """K4 against its plain version on the card: the bf16 gradient within
+    one bf16 step of each element plus K1's f32 gate (1e-5 of the
+    gradient's magnitude: the prob expansion sums in another order),
+    bit-equal without a prob term (the stencil rounds op for op,
+    -fmad=false); sums rtol 1e-5."""
+    C = len(samps)
+    h_true, w_true = ext or (h_pad, W)
+    f, d = _state(rng, C, L, W)
+    devqs = _devqs(rng, L, W, samps, prob)
+    halos = None
+    if halo:
+        (ft, dt), (fb, db) = (_state(rng, C, 2, W) for _ in range(2))
+        halos = (_t(ft).cuda(), _t(fb).cuda(), _t(dt, torch.bfloat16).cuda(),
+                 _t(db, torch.bfloat16).cuda())
+    pa_ss = [0.36 * sy * sx if p else 0.0 for (sy, sx), p in zip(samps, prob)]
+    extents = (torch.tensor([h_true, w_true], dtype=torch.int32).cuda()
+               if dynamic else None)
     args = (_t(f).cuda(), _t(d, torch.bfloat16).cuda(),
-            [_t(x, torch.bfloat16).cuda() for x in devqs], None, 0.37, 0,
-            0.3, samps, pa_ss, H, H, W)
+            [_t(x, torch.bfloat16).cuda() for x in devqs], halos, 0.37, row0,
+            weight, samps, pa_ss, h_pad, h_true, w_true, extents)
     got = stripe_grad.fused_grad_striped_lite(*args)
     ref = stripe_grad.fused_grad_striped_lite_plain(*args)
     floor = 1e-5 * max(1.0, float(ref[0].float().abs().max()))
     assert _within_bf16_step(got[0], ref[0], floor)
-    torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=0)
+    if not any(prob):
+        assert torch.equal(got[0], ref[0])
+    for a, b in zip(got[1:], ref[1:]):
+        torch.testing.assert_close(a, b.to(a.device), rtol=1e-5, atol=0)
 
+
+def test_torch_cuda_k4_k5_match_plain(cuda_device):
+    """K4 and K5 on the card against their plain versions (chip_smoke.py
+    holds the full set of geometries): K4 over K4_CUDA_CASES with the gates
+    of _k4_cuda_case; K5's bf16 outputs within one bf16 step of the element
+    plus the f32 gate of the value before rounding (K2's 1e-5 of fnew's
+    for dnew, and of the coefficients' for devq), fnew within K2's gate,
+    distances rtol 1e-5."""
+    rng = np.random.default_rng(17)
+    for case in K4_CUDA_CASES:
+        _k4_cuda_case(rng, *case)
+
+    samps, C, H, W = S420, 3, 128, 256
     f, d, g, datas, qs, pa_ss = _k5_problem(rng, C, H, W, samps, [True] * 3)
     args = (_t(f).cuda(), _t(d, torch.bfloat16).cuda(),
             _t(g, torch.bfloat16).cuda(), 0.41,
@@ -444,21 +518,31 @@ def test_torch_cuda_k4_k5_match_plain(cuda_device):
     torch.testing.assert_close(got[3], ref[3], rtol=1e-5, atol=0)
 
 
-def test_torch_cuda_k4_after_k1_keeps_its_own_scratch(cuda_device):
-    """K4 sizes its partial-sum scratch from its own 16 x 32 tile
-    (stripe_grad.lite_partial_rows), not from K1's grid: K1 then K4 on a
-    band where the two grids have different row counts, K4 against its
-    plain version with the gates of test_torch_cuda_k4_k5_match_plain."""
+def test_torch_cuda_k4_after_k1_keeps_its_own_scratch(cuda_device,
+                                                      monkeypatch):
+    """K4 sizes its partial-sum scratch from its own library's
+    j2p_grad_lite_partial_rows for the band, not from K1's grid or query:
+    K1 then K4 on one band, the scratch K4's wrapper allocates has the
+    rows the stripe_grad library reports, and K4 agrees with its plain
+    version with the gates of _k4_cuda_case."""
     from jpeg2png_tpu_torch.kernels import grad_step
 
     rng = np.random.default_rng(18)
     samps, C, H, W = S420, 3, 256, 512
     f, d = _state(rng, C, H, W)
     ft = _t(f).cuda()
-    k1_rows = grad_step.scratch(grad_step._launcher()[0], C, True, H, W,
-                                "cuda").shape[0]
-    assert k1_rows != stripe_grad.lite_partial_rows(H, W)
     grad_step.fused_grad(ft, ft - _t(d).cuda(), [None] * C, 0.37, 0.3)
+    lib, _ = stripe_grad._launcher()
+    want = lib.j2p_grad_lite_partial_rows(C, 1, H, W)
+    sizes = []
+    scratch = stripe_grad.lite_scratch
+
+    def spy(*a, **k):
+        part = scratch(*a, **k)
+        sizes.append(part.shape[0])
+        return part
+
+    monkeypatch.setattr(stripe_grad, "lite_scratch", spy)
     devqs = _devqs(rng, H, W, samps, [True] * 3)
     pa_ss = [0.36 * sy * sx for sy, sx in samps]
     args = (ft, _t(d, torch.bfloat16).cuda(),
@@ -466,6 +550,76 @@ def test_torch_cuda_k4_after_k1_keeps_its_own_scratch(cuda_device):
             0.3, samps, pa_ss, H, H, W)
     got = stripe_grad.fused_grad_striped_lite(*args)
     ref = stripe_grad.fused_grad_striped_lite_plain(*args)
+    assert sizes == [want]
     floor = 1e-5 * max(1.0, float(ref[0].float().abs().max()))
     assert _within_bf16_step(got[0], ref[0], floor)
     torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=0)
+
+
+# ------------------------------------------------- K4's grid and scratch
+
+@pytest.mark.parametrize("L,W,slots,rows", [
+    # 3072 / 254 -> 13 strips (12 x 254 + 24); 264 // 13 = 20 segments
+    # wanted: ceil(2048 / 20) = 103 rows each, 20 segments (19 x 103 + 91)
+    (2048, 3072, 264, 13 * 20),
+    # the striped lite band: 49 strips (48 x 254 + 96); 264 // 49 = 5:
+    # 410 rows each, 5 segments
+    (2048, 12288, 264, 49 * 5),
+    # 3 strips (254 + 254 + 4); 88 segments wanted: ceil(1504 / 88) = 18
+    # rows, 84 segments (83 x 18 + 10)
+    (1504, 512, 264, 3 * 84),
+    # 3 strips (254 + 254 + 12); 16-row segments: 4
+    (64, 520, 264, 3 * 4),
+    (8, 8, 264, 1),             # one strip, one segment shorter than 16 rows
+    (64, 96, 1, 1),             # one resident block: the band in one segment
+])
+def test_torch_k4_partial_rows_mirror(L, W, slots, rows):
+    """kernels/stripe_grad.py::lite_partial_rows, the CPU mirror of
+    csrc/stripe_grad.cu make_grid, against grids counted by hand: strips
+    of 254 columns, segments of at least 16 rows sized so that the grid
+    is about one wave of `slots` resident blocks."""
+    assert stripe_grad.lite_partial_rows(L, W, slots) == rows
+
+
+def test_torch_cuda_k4_partial_rows_mirror_matches_library(cuda_device):
+    """The mirror against the library on the card: one strip of 2^24 rows
+    splits into as many segments as blocks are resident (slots), and every
+    grid of the hand-counted cases then has the library's rows."""
+    lib, _ = stripe_grad._launcher()
+    for C, tgv in ((3, 1), (1, 0), (4, 1)):
+        slots = lib.j2p_grad_lite_partial_rows(C, tgv, 1 << 24, 8)
+        for L, W in ((2048, 3072), (2048, 12288), (1504, 512), (64, 520),
+                     (8, 8)):
+            assert lib.j2p_grad_lite_partial_rows(C, tgv, L, W) == \
+                stripe_grad.lite_partial_rows(L, W, slots)
+
+
+class _FakeLiteLib:
+    """K4's row-count entry point answering `rows` (or a negative CUDA
+    error), and its error string."""
+
+    def __init__(self, rows):
+        self.asked = []
+
+        def count(C, tgv, L, W):
+            self.asked.append((C, tgv, L, W))
+            return rows
+        self.j2p_grad_lite_partial_rows = count
+
+        def error_string(err):
+            return b"invalid argument"
+        self.j2p_error_string = error_string
+
+
+def test_torch_k4_scratch_is_what_the_library_reports():
+    """K4's wrapper sizes its partial-sum scratch from the library's
+    j2p_grad_lite_partial_rows for the band (no tile constants in
+    Python), and raises on the library's error."""
+    lib = _FakeLiteLib(41)
+    part = stripe_grad.lite_scratch(lib, 3, True, 2048, 3072, "cpu")
+    assert part.shape == (41, 5) and part.dtype == torch.float32
+    assert lib.asked == [(3, 1, 2048, 3072)]
+    assert stripe_grad.lite_scratch(_FakeLiteLib(1), 1, False, 8, 8,
+                                    "cpu").shape == (1, 3)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        stripe_grad.lite_scratch(_FakeLiteLib(-1), 3, True, 8, 8, "cpu")
