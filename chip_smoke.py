@@ -36,7 +36,9 @@ non-zero exit and no result line):
      each through all four solver tiers (forced with tier=); photo512 at
      -i 1000 through the mega and mega-lite tiers against the reference's
      converged golden (> 55 dB, as tests/tpu_checks.py holds the JAX
-     package);
+     package); lineart64 with -s and per-channel triples (-w 0.5,0.2,0.1
+     -p 0.002,0.001,0.0005 -i 5,4,3) through every tier, each channel's
+     CSV rows and the PNG (> 45 dB) against the reference's;
   6. the single-image path: the default-flag CLI decode of a 3072x2048
      4:2:0 q30 JPEG (the tier solver.tier_rule picks) with the launch
      counters read around it, the same decode forced to two-lite (50
@@ -69,7 +71,17 @@ non-zero exit and no result line):
      the two tier with times and peak memory, -s on it (K7 = K6 = 600),
      K7's, K6's and K2's times at its band shapes (K7's split as K1's),
      and cli --tpu-stripes 4 on one card (the clamp warning);
-  9. a JSON line of end-to-end numbers, one JSON line of kernel records,
+  9. checkpoint/resume (models/checkpoint.py), each run bit-equal with
+     the one-shot run: the smoke JPEG at -i 50 through every tier
+     (solve_checkpointed every 20 iterations against solve_joint, launch
+     counts: K1 = K2 = 50, K4 = K5 = 50, 3 K3 launches), a run cut at 20
+     and resumed from its snapshot; the 100.7 MP problem over 4 bands, f32
+     body (K7 = K2 = 200, 3 collectives per iteration), and the smoke JPEG
+     over 4 bands, lite body (K4 = K5 = 200), each checkpointed every 20
+     and cut at 40; the snapshot bytes, the seconds of the host gather,
+     save_state and load_state (free disk checked first), and the wall
+     time of each checkpointed solve against the one-shot's;
+ 10. a JSON line of end-to-end numbers, one JSON line of kernel records,
      then the device line last.
 
 Imports nothing of JAX or of the JAX package jpeg2png_tpu.  Writes only
@@ -111,6 +123,11 @@ K1_OPS_PER_CHANNEL_PIXEL = 60
 K2_OPS_PER_COEF = 96 + 8
 
 GOLDENS = ("photo512_q10_420", "photo600x400_q20_420", "art440x320_q30_422")
+# tests/test_e2e.py's assert_metrics_close: (column, rtol, atol)
+METRIC_GATES = ((0, 6e-3, 0.0), (2, 6e-3, 0.0), (3, 6e-3, 1e-3),
+                (1, 5e-2, 1e-3))
+# the -s golden with per-channel triples (tests/test_e2e.py:135-152)
+STRIPLE = "lineart64_q20_420"
 DEVICE = "cuda"
 
 
@@ -1468,8 +1485,7 @@ def phase_goldens():
         ours = _csv_rows(log_path)[:2]
         gold = _csv_rows(FIXTURES / "golden" / f"{name}_i5.csv")[:2]
         # the reference CSV gate of tests/test_e2e.py before the chaos point
-        for col, rtol, atol in ((0, 6e-3, 0.0), (2, 6e-3, 0.0),
-                                (3, 6e-3, 1e-3), (1, 5e-2, 1e-3)):
+        for col, rtol, atol in METRIC_GATES:
             ok = np.allclose(ours[:, col], gold[:, col], rtol=rtol, atol=atol)
             require(ok, f"{name} CSV column {col} ({tier}): {ours[:, col]} "
                         f"vs {gold[:, col]}")
@@ -1491,7 +1507,43 @@ def phase_goldens():
             f"(gate {GOLDEN_I1000_DB[tier]} dB)")
         require(p > GOLDEN_I1000_DB[tier],
                 f"golden photo512 i1000 ({tier}): PSNR {p:.2f} dB")
-    return converged
+
+    # -s with per-channel triples through the pipeline, every tier: each
+    # channel's CSV rows and the PNG, tests/test_e2e.py's gates
+    from jpeg2png_tpu_torch.io import read_jpeg
+    from jpeg2png_tpu_torch.pipeline import smooth_decode
+
+    img = read_jpeg(FIXTURES / f"{STRIPLE}.jpg")
+    gold_png = decode_png(
+        (FIXTURES / "golden" / f"{STRIPLE}_striple_i543.png").read_bytes())
+    golden = [_csv_rows(FIXTURES / "golden" / f"{STRIPLE}_striple_i543.csv",
+                        c) for c in range(3)]
+    triples = SolverConfig(weights=(0.5, 0.2, 0.1),
+                           pweights=(0.002, 0.001, 0.0005),
+                           iterations=(5, 4, 3), separate_components=True)
+    striple = {}
+    for tier in TIERS:
+        zero_counts()
+        result = smooth_decode(img, triples, device=DEVICE, tier=tier)
+        # one solve per channel, one-shot: 5 + 4 + 3 iterations
+        _expect(read_counts(), tier_launches(
+            tier, 3 if tier.startswith("mega") else 12),
+            f"-s triples ({tier} tier)")
+        for c in range(3):
+            ours = result.metrics_per_channel[c]
+            require(ours.shape == golden[c].shape,
+                    f"-s triples channel {c} ({tier}): {ours.shape} rows")
+            for col, rtol, atol in METRIC_GATES:
+                require(np.allclose(ours[:, col], golden[c][:, col],
+                                    rtol=rtol, atol=atol),
+                        f"-s triples channel {c} column {col} ({tier}): "
+                        f"{ours[:, col]} vs {golden[c][:, col]}")
+        p = striple[tier] = psnr(result.pixels, gold_png)
+        log(f"  golden {STRIPLE} -s -w 0.5,0.2,0.1 -p 0.002,0.001,0.0005 "
+            f"-i 5,4,3 ({tier} tier): every channel's CSV rows agree (rtol "
+            f"6e-3), PSNR {p:.2f} dB")
+        require(p > 45.0, f"-s triples ({tier}): PSNR {p:.2f} dB")
+    return converged, striple
 
 
 def _bytes_k1(C, P, H, W, halo=False):
@@ -2539,6 +2591,192 @@ def phase_striped(card: str, errs):
     return records, summary
 
 
+# ------------------------------------------------ checkpoint / resume
+
+CKPT_ITERS = 50          # iterations of each checkpointed solve
+CKPT_EVERY = 20          # snapshot interval: chunks of 20, 20 and 10
+CKPT_CRASH = {"single": 20, "striped": 40}   # where the simulated crash stops
+
+
+def _wall(fn):
+    """(fn(), host seconds) with the card synchronised before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _leaves(carry):
+    from jpeg2png_tpu_torch.models import checkpoint
+
+    leaves = []
+    checkpoint._flatten(carry, leaves)
+    return leaves
+
+
+def _bits(t):
+    import torch
+
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _snapshot_round(label, card, path, carry, gather, fp, done):
+    """The snapshot of a run cut after `done` iterations: `gather(carry)`
+    brings it to the host, save_state writes it (after a check of the free
+    disk), load_state reads it back bit-exact; each step timed."""
+    import shutil
+
+    import torch
+
+    from jpeg2png_tpu_torch.models import checkpoint
+
+    host, gather_s = _wall(lambda: gather(carry))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(host))
+    free = shutil.disk_usage(OUT_DIR).free
+    # the temp file and the snapshot it replaces coexist for a moment
+    require(free > 2 * nbytes + (1 << 30),
+            f"{label}: {free} bytes free under {OUT_DIR}; a snapshot takes "
+            f"{nbytes}, twice while it replaces the last, and 1 GiB spare")
+    _, save_s = _wall(lambda: checkpoint.save_state(str(path), host, done, fp))
+    (loaded, it), load_s = _wall(lambda: checkpoint.load_state(str(path), fp))
+    got = _leaves(loaded)
+    require(it == done and len(got) == len(_leaves(host)) and all(
+        a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+        for a, b in zip(got, _leaves(host))),
+        f"{label}: load_state did not give back the saved carry")
+    out = {"carry_bytes": nbytes, "file_bytes": path.stat().st_size,
+           "gather_s": gather_s, "save_s": save_s, "load_s": load_s}
+    log(f"  {label}: snapshot at {done} of {CKPT_ITERS} iterations, "
+        f"{out['file_bytes']} bytes ({nbytes} of carry); host gather "
+        f"{gather_s:.3f} s, save_state {save_s:.3f} s, load_state "
+        f"{load_s:.3f} s  [{card}]")
+    return out
+
+
+def _same_run(label, fdata, metrics, ref):
+    import numpy as np
+    import torch
+
+    require(torch.equal(fdata, ref[0]),
+            f"{label}: fdata differs from the one-shot run (max |diff| "
+            f"{max_err(fdata, ref[0])})")
+    require(np.array_equal(metrics, ref[1]),
+            f"{label}: metric rows differ from the one-shot run")
+
+
+def _checkpoint_case(label, card, one_shot, steps, gather, fp, run, crash,
+                     want, comm=None):
+    """One path's gates: the one-shot run; a run cut after `crash`
+    iterations (`steps(crash)` -> (metrics, carry)), snapshotted and
+    resumed by `run(path)`; the checkpointed run from scratch with its
+    launch counts (`want`) and, striped, its collectives (`comm()` gives
+    the run's communicator counts).  Both must be bit-equal with the
+    one-shot run and leave no snapshot."""
+    path = OUT_DIR / f"ckpt_{label.replace(' ', '_')}.npz"
+    ref, one_s = _wall(one_shot)
+    m_head, carry = steps(crash)
+    snap = _snapshot_round(label, card, path, carry, gather, fp, crash)
+    del carry
+    res, resume_s = _wall(lambda: run(path))
+    require(res.resumed_from == crash,
+            f"{label}: resumed from {res.resumed_from}, not {crash}")
+    import numpy as np
+
+    _same_run(f"{label} resumed at {crash}", res.fdata,
+              np.concatenate([m_head, res.metrics]), ref)
+    require(not path.exists(), f"{label}: the resumed run left its snapshot")
+    zero_counts()
+    res, ckpt_s = _wall(lambda: run(path))
+    counts = read_counts()
+    _expect(counts, want, f"{label}: checkpointed solve")
+    if comm is not None:
+        require(comm() == {"halo": 2 * CKPT_ITERS, "all_reduce": CKPT_ITERS},
+                f"{label}: collectives {comm()}, expected 3 per iteration")
+    require(res.resumed_from == 0, f"{label}: resumed a stale snapshot")
+    _same_run(f"{label} chunked by {CKPT_EVERY}", res.fdata, res.metrics,
+              ref)
+    require(not path.exists(), f"{label}: the finished run left its snapshot")
+    nonzero = {k: v for k, v in counts.items() if v}
+    log(f"  {label}: checkpointed (every {CKPT_EVERY}) and resumed (at "
+        f"{crash}) runs bit-equal with the one-shot run; launches "
+        f"{nonzero}; wall {ckpt_s:.3f} s checkpointed vs {one_s:.3f} s "
+        f"one-shot, resume {resume_s:.3f} s  [{card}]")
+    snap.update({"launches": nonzero, "one_shot_s": one_s,
+                 "checkpointed_s": ckpt_s, "resume_s": resume_s})
+    return snap
+
+
+def phase_checkpoint(card: str):
+    """Checkpoint/resume (models/checkpoint.py) on every path: the smoke
+    JPEG through each tier (solve_checkpointed against solve_joint), the
+    100.7 MP problem over 4 bands with the f32 body and the smoke JPEG over
+    4 bands with the lite body (solve_striped_checkpointed against
+    solve_striped); each chunked by CKPT_EVERY and cut at CKPT_CRASH, bit
+    for bit, with snapshot sizes and times."""
+    import numpy as np
+    import torch
+
+    from jpeg2png_tpu_torch.io import read_jpeg
+    from jpeg2png_tpu_torch.models import checkpoint, solver
+    from jpeg2png_tpu_torch.parallel import stripes
+
+    it, out = CKPT_ITERS, {}
+    img = read_jpeg(SMOKE_JPEG)
+    args = _args(img) + (0.3, [0.001] * 3, it)
+    geoms = solver._geometry(args[0], args[2])
+    for tier in TIERS:
+        crash = CKPT_CRASH["single"]
+        out[tier] = _checkpoint_case(
+            f"{tier} tier {img.width}x{img.height}", card,
+            lambda tier=tier: solver.solve_joint(*args, device=DEVICE,
+                                                 tier=tier),
+            lambda n, tier=tier: solver.solve_steps(
+                *args, nsteps=n, device=DEVICE, tier=tier)[1:],
+            lambda carry: checkpoint._to(carry, "cpu"),
+            checkpoint.fingerprint(geoms, tier, 0.3, [0.001] * 3, it, True),
+            lambda path, tier=tier: checkpoint.solve_checkpointed(
+                *args, str(path), checkpoint_every=CKPT_EVERY, device=DEVICE,
+                tier=tier),
+            crash, tier_launches(tier, (it + CKPT_EVERY - 1) // CKPT_EVERY
+                                 if tier.startswith("mega") else it))
+        torch.cuda.empty_cache()
+
+    n = STRIPE_BANDS
+    tiled = ([np.tile(d, (TILE, TILE, 1, 1)) for d in args[0]],) + args[1:]
+    for label, body, a, want in (
+            (f"striped f32 {img.width * TILE}x{img.height * TILE}", "f32",
+             tiled, _launches(fused_grad_striped=n * it,
+                              fused_project_multi=n * it)),
+            (f"striped lite {img.width}x{img.height}", "lite", args,
+             _launches(fused_grad_striped_lite=n * it,
+                       fused_project_multi_lite=n * it))):
+        mesh = {}
+
+        def run(path, a=a, body=body):
+            mesh["last"] = _band_mesh()
+            return checkpoint.solve_striped_checkpointed(
+                *a, mesh["last"], str(path), checkpoint_every=CKPT_EVERY,
+                body=body)
+
+        out[f"striped-{body}"] = _checkpoint_case(
+            label, card,
+            lambda a=a, body=body: stripes.solve_striped(
+                *a, _band_mesh(), body=body),
+            lambda k, a=a, body=body: stripes.striped_steps(
+                *a, _band_mesh(), nsteps=k, body=body)[1:],
+            checkpoint.gather_striped_carry,
+            checkpoint.striped_fingerprint(
+                solver._geometry(a[0], a[2]), n, body, 0.3, [0.001] * 3, it,
+                True),
+            run, CKPT_CRASH["striped"], want,
+            comm=lambda: mesh["last"].comm.counts)
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2565,7 +2803,7 @@ def main() -> int:
     errs["fused_grad_striped"], errs["fused_project"] = striped_kernel_cases(
         np.random.default_rng(1))
     log("phase 5: goldens, every tier")
-    converged = phase_goldens()
+    converged, striple = phase_goldens()
     log("phase 6: single image, 3072x2048 4:2:0 default flags, every tier")
     records, single = phase_main_path(card, errs)
     k3_points = phase_k3_points(card, images)
@@ -2581,11 +2819,14 @@ def main() -> int:
     log(f"phase 8: the row-striped path, {STRIPE_BANDS} bands on one card")
     striped_records, striped = phase_striped(card, errs)
     records += striped_records
+    log("phase 9: checkpoint / resume, every tier and both striped bodies")
+    ckpt = phase_checkpoint(card)
     log(json.dumps({"card": card, "build_s": build_s, "single": single,
-                    "golden_i1000_psnr": converged, "k3_points": k3_points,
+                    "golden_i1000_psnr": converged,
+                    "golden_striple_psnr": striple, "k3_points": k3_points,
                     "tier_sweep": sweep,
                     "serving": {k: v[1] for k, v in serving.items()},
-                    "striped": striped,
+                    "striped": striped, "checkpoint": ckpt,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

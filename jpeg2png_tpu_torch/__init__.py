@@ -21,7 +21,8 @@ it):
                projection, prob term, color conversion (plain PyTorch)
     kernels/   the CUDA kernels' wrappers and plain versions; the sources
                are in csrc/ and build at first use (kernels/_build.py)
-    models/    the FISTA projected-subgradient solver (four tiers)
+    models/    the FISTA projected-subgradient solver (four tiers) and
+               checkpoint/resume of long solves (models/checkpoint.py)
     parallel/  the row-striped solve: band meshes, torch.distributed
                processes, the striped solver (cli --tpu-stripes)
     runner.py  bucketed batch serving (cli --tpu-batch)

@@ -141,6 +141,30 @@ def gather_output(fdata):
     return torch.cat([p[:, :r] for p, r in zip(parts, rows)], dim=1)
 
 
+def gather_to_primary(tensors):
+    """Every process's `tensors` (a list of the same shapes and dtypes on
+    every process: one band's carry each) on rank 0, as host tensors: a
+    list per process in rank order, None on the other ranks.  A
+    collective: every process calls it.  A single process gets [its
+    tensors on the host].  Every tensor travels as its bytes (uint8: NCCL
+    and gloo both take it, where neither takes every dtype)."""
+    import torch.distributed as dist
+
+    if not is_multi_process():
+        return [[t.detach().cpu() for t in tensors]]
+    primary = is_primary()
+    out = [[] for _ in range(world_size())] if primary else None
+    for t in tensors:
+        x = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        parts = ([torch.empty_like(x) for _ in range(world_size())]
+                 if primary else None)
+        dist.gather(x, parts, dst=0)
+        if primary:
+            for r, p in enumerate(parts):
+                out[r].append(p.cpu().view(t.dtype).reshape(t.shape))
+    return out
+
+
 class DistributedComm:
     """The striped solve's collectives across processes, one band each:
     the LocalComm interface (mesh.py) on lists of one tensor, with the

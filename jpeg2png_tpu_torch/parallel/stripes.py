@@ -51,6 +51,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from jpeg2png_tpu_torch import resolve_device
 from jpeg2png_tpu_torch.kernels import iter_step, stripe_grad
 from jpeg2png_tpu_torch.kernels.grad_step import (
     HALO_ROWS, MAX_CHANNELS, stack_channels)
@@ -145,6 +146,8 @@ class _Striped:
 
     def __init__(self, datas, quants, samps, weight, pweights, iterations,
                  simd_compat_logging, mesh, body):
+        for d in mesh.devices:
+            resolve_device(d)             # a CUDA band without a card raises
         geoms = solver._geometry(datas, samps)
         n = mesh.n
         if not stripes_supported(geoms, n):
@@ -313,6 +316,57 @@ class _Striped:
         return torch.cat([f.to(dev) for f in fs], dim=1)[:, :rows]
 
 
+def striped_steps(
+    datas: Sequence[np.ndarray],
+    quants: Sequence[np.ndarray],
+    samps: Sequence[Tuple[int, int]],
+    weight: float,
+    pweights: Sequence[float],
+    iterations: int,
+    mesh,
+    carry=None,
+    nsteps: Optional[int] = None,
+    simd_compat_logging: bool = True,
+    body: Optional[str] = None,
+    on_chunk=None,
+    chunk: Optional[int] = None,
+):
+    """The striped twin of models/solver.py::solve_steps: `nsteps`
+    (default `iterations`) iterations from `carry` (None: the plain
+    decode), this process's bands of a carry of the same body.
+    `iterations` is the TOTAL planned count (it fixes the step size).
+
+    on_chunk(done_iterations, metrics_chunk), when given, runs the steps
+    as chunks of `chunk` iterations (default 8-50), called on every
+    process after each one: the carry, local distances included, resumes
+    exactly, so the result equals the one-shot run's.
+
+    Returns (fdata, metrics [nsteps, 4] numpy, carry): fdata is this
+    process's rows of the [C, H, W] canvas (all of it in a single
+    process), the carry this process's bands."""
+    problem = _Striped(datas, quants, samps, weight, pweights, iterations,
+                       simd_compat_logging, mesh, body)
+    nsteps = iterations if nsteps is None else nsteps
+    if on_chunk is None:
+        chunk = nsteps
+    elif chunk is None:
+        chunk = max(8, min(50, nsteps // 20 or nsteps))
+    if carry is None:
+        carry = problem.initial_carry()
+    elif isinstance(carry[2][0], tuple) != (problem.body == "lite"):
+        raise ValueError(f"the carry is not the {problem.body} body's")
+    done = 0
+    all_metrics = [np.zeros((0, 4), np.float32)]
+    while done < nsteps:
+        nn = min(chunk, nsteps - done)
+        carry, metrics = problem.run(carry, nn)
+        done += nn
+        all_metrics.append(metrics)
+        if on_chunk is not None:
+            on_chunk(done, metrics)
+    return problem.output(carry[0]), np.concatenate(all_metrics), carry
+
+
 def solve_striped(
     datas: Sequence[np.ndarray],
     quants: Sequence[np.ndarray],
@@ -330,28 +384,14 @@ def solve_striped(
     contract of models/solver.py::solve_joint.
 
     body: None (striped_carry_kind: the f32 body under the committed
-    gates) or one of BODIES, forced.  on_chunk(done_iterations,
-    metrics_chunk), when given, runs the solve as resumable chunks of
-    `chunk` iterations (default 8-50), called on every process after each
-    one: the carry, local distances included, resumes exactly, so the
-    result equals the one-shot solve's.
+    gates) or one of BODIES, forced.  on_chunk and chunk as for
+    striped_steps.
 
     Returns (fdata, metrics [iterations, 4] numpy): fdata is this
     process's rows of the [C, H, W] canvas, all of it in a single process
     (distributed.gather_output collects them across processes)."""
-    problem = _Striped(datas, quants, samps, weight, pweights, iterations,
-                       simd_compat_logging, mesh, body)
-    if on_chunk is None:
-        chunk = iterations
-    elif chunk is None:
-        chunk = max(8, min(50, iterations // 20 or iterations))
-    carry, done = problem.initial_carry(), 0
-    all_metrics = [np.zeros((0, 4), np.float32)]
-    while done < iterations:
-        nn = min(chunk, iterations - done)
-        carry, metrics = problem.run(carry, nn)
-        done += nn
-        all_metrics.append(metrics)
-        if on_chunk is not None:
-            on_chunk(done, metrics)
-    return problem.output(carry[0]), np.concatenate(all_metrics)
+    fdata, metrics, _ = striped_steps(
+        datas, quants, samps, weight, pweights, iterations, mesh,
+        simd_compat_logging=simd_compat_logging, body=body,
+        on_chunk=on_chunk, chunk=chunk)
+    return fdata, metrics

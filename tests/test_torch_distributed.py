@@ -66,16 +66,14 @@ _WORKER = textwrap.dedent("""
 """) % {"layout": LAYOUT}
 
 
-def test_torch_two_process_striped_solve(tmp_path, fixtures_dir):
-    from jpeg2png_tpu_torch.cli import main
-    from jpeg2png_tpu_torch.parallel.mesh import stripe_mesh
-    from jpeg2png_tpu_torch.parallel.stripes import solve_striped
-
+def _run_two_processes(tmp_path, script):
+    """`script` in two processes joined through the JPEG2PNG_* variables
+    on a free localhost port; fails unless both print 'rank i: ok'."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     worker = tmp_path / "worker.py"
-    worker.write_text(_WORKER)
+    worker.write_text(script)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     procs = []
     for i in range(2):
@@ -102,6 +100,14 @@ def test_torch_two_process_striped_solve(tmp_path, fixtures_dir):
         assert p.returncode == 0, f"rank {i} failed:\n{outs[i]}"
         assert f"rank {i}: ok" in outs[i]
 
+
+def test_torch_two_process_striped_solve(tmp_path, fixtures_dir):
+    from jpeg2png_tpu_torch.cli import main
+    from jpeg2png_tpu_torch.parallel.mesh import stripe_mesh
+    from jpeg2png_tpu_torch.parallel.stripes import solve_striped
+
+    _run_two_processes(tmp_path, _WORKER)
+
     # the same solve with both bands in this process: the halo rows and
     # the two-term all-reduce are the same numbers, so the results agree
     # to rounding (rtol 1e-6)
@@ -126,3 +132,77 @@ def test_torch_two_process_striped_solve(tmp_path, fixtures_dir):
                  "cpu"]) == 0
     np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "cli0.png")),
                                   np.asarray(Image.open(ref)))
+
+
+_CKPT_WORKER = textwrap.dedent("""
+    import os, sys
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    sys.path.insert(0, "tests")
+    from test_torch_solver import synth_channels
+    from jpeg2png_tpu_torch.models import checkpoint as C
+    from jpeg2png_tpu_torch.models.solver import _geometry
+    from jpeg2png_tpu_torch.parallel import distributed
+    from jpeg2png_tpu_torch.parallel.mesh import stripe_mesh
+    from jpeg2png_tpu_torch.parallel.stripes import striped_steps
+
+    rank, world = distributed.initialize(device="cpu")
+    mesh = stripe_mesh()
+    datas, quants, samps = synth_channels(np.random.default_rng(3),
+                                          %(layout)r)
+    out = os.environ["JPEG2PNG_TEST_TMP"]
+    ckpt = os.path.join(out, "state.npz")
+    # every snapshot this process writes ends in the os.replace
+    writes = []
+    replace = os.replace
+    os.replace = lambda a, b: (writes.append(b), replace(a, b))[1]
+
+    body = os.environ["JPEG2PNG_TEST_BODY"]
+    args = (datas, quants, samps, 0.3, [0.001] * 3, 6, mesh)
+    res = C.solve_striped_checkpointed(*args, ckpt, checkpoint_every=2,
+                                       body=body)
+    assert res.resumed_from == 0 and not os.path.exists(ckpt)
+    # a crash after 4 of 6 iterations: the snapshot of the gathered bands
+    _, m_first, carry = striped_steps(*args, nsteps=4, body=body)
+    C.save_state(ckpt, C.gather_striped_carry(carry), 4,
+                 C.striped_fingerprint(_geometry(datas, samps), 2, body,
+                                       0.3, [0.001] * 3, 6, True))
+    assert os.path.exists(ckpt)
+    res2 = C.solve_striped_checkpointed(*args, ckpt, checkpoint_every=100,
+                                        body=body)
+    assert res2.resumed_from == 4, res2.resumed_from
+    distributed.barrier()
+    assert not os.path.exists(ckpt)
+    np.savez(os.path.join(out, f"ckpt{rank}.npz"), fd=res.fdata.numpy(),
+             m=res.metrics, fd2=res2.fdata.numpy(),
+             m2=np.concatenate([m_first, res2.metrics]),
+             writes=np.array(writes, dtype=str))
+    print(f"rank {rank}: ok", flush=True)
+""") % {"layout": LAYOUT}
+
+
+@pytest.mark.parametrize("body", ["f32", "lite"])
+def test_torch_two_process_striped_checkpoint(tmp_path, monkeypatch, body):
+    """solve_striped_checkpointed over two gloo processes, one band each,
+    either body (the lite carry's bf16 state crosses the gather as bytes):
+    only rank 0 writes the snapshots (two in a 6-iteration run chunked by
+    2, then the simulated crash's), both ranks resume from the one file,
+    the gathered results equal the single-process striped solve bit for
+    bit, and the file is gone at the end."""
+    from jpeg2png_tpu_torch.parallel.mesh import stripe_mesh
+    from jpeg2png_tpu_torch.parallel.stripes import solve_striped
+
+    monkeypatch.setenv("JPEG2PNG_TEST_BODY", body)
+    _run_two_processes(tmp_path, _CKPT_WORKER)
+    datas, quants, samps = synth_channels(np.random.default_rng(3), LAYOUT)
+    fd_1, m_1 = solve_striped(datas, quants, samps, 0.3, [0.001] * 3, 6,
+                              stripe_mesh(2, ["cpu"] * 2), body=body)
+    ckpt = str(tmp_path / "state.npz")
+    for r in range(2):
+        got = np.load(tmp_path / f"ckpt{r}.npz")
+        assert list(got["writes"]) == ([ckpt] * 3 if r == 0 else [])
+        for fd, m in ((got["fd"], got["m"]), (got["fd2"], got["m2"])):
+            np.testing.assert_array_equal(fd, fd_1.numpy())
+            np.testing.assert_array_equal(m, m_1)
+    assert not (tmp_path / "state.npz").exists()

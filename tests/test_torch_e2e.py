@@ -78,6 +78,26 @@ def test_torch_separate_components_matches_reference(fixtures_dir):
     assert psnr(result.pixels, gold_png) > 45.0
 
 
+def test_torch_separate_triple_weights_matches_reference(fixtures_dir):
+    """-s with per-channel w/p/i triples (-w 0.5,0.2,0.1 -p
+    0.002,0.001,0.0005 -i 5,4,3; the triple forms are only legal with
+    -s): each channel's metric rows against the reference's CSV and the
+    PNG > 45 dB, the gates tests/test_e2e.py holds the JAX package to."""
+    img = read_jpeg(fixtures_dir / "lineart64_q20_420.jpg")
+    cfg = SolverConfig(weights=(0.5, 0.2, 0.1),
+                       pweights=(0.002, 0.001, 0.0005),
+                       iterations=(5, 4, 3), separate_components=True)
+    result = smooth_decode(img, cfg, device="cpu")
+    golden = load_golden_csv(
+        fixtures_dir / "golden" / "lineart64_q20_420_striple_i543.csv")
+    for c in range(3):
+        assert result.metrics_per_channel[c].shape[0] == (5, 4, 3)[c]
+        assert_metrics_close(result.metrics_per_channel[c], golden[c])
+    gold_png = np.asarray(Image.open(
+        fixtures_dir / "golden" / "lineart64_q20_420_striple_i543.png"))
+    assert psnr(result.pixels, gold_png) > 45.0
+
+
 @pytest.mark.parametrize("csv_name,cfg", [
     ("lineart64_q20_420_w0_i5", SolverConfig(weights=(0.0,) * 3,
                                              iterations=(5,) * 3)),

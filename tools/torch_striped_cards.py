@@ -16,6 +16,12 @@ blocks tiled --tile x --tile (4: 12288 x 8192, 100.7 MP), default flags
   * in --cards processes on localhost, one band each
     (parallel.distributed: NCCL on cards, gloo with --device cpu).
 
+In the multi-process run the same solve is also checkpointed
+(models/checkpoint.py::solve_striped_checkpointed, a snapshot every 2/5
+of the iterations: rank 0 gathers every band over NCCL or gloo and
+writes, every rank resumes) and cut after 4/5 of them and resumed from
+its snapshot: both must equal the one-shot multi-process solve bit for
+bit, with the snapshot's bytes and seconds reported (rank 0's clock).
 Each striped result is held against the reference (PSNR > 45 dB on the
 8-bit RGB pixels) and its collectives counted (3 per iteration); each
 solve is timed on the device clock (CUDA events around the second of two
@@ -94,6 +100,61 @@ def _check(cond: bool, msg: str) -> None:
         raise SystemExit(f"torch_striped_cards: {msg}")
 
 
+def _host_s(fn, device):
+    """(fn(), host seconds), the device synchronised before and after."""
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0
+
+
+def _checkpointed(args, problem, fd, metrics, device) -> dict:
+    """The multi-process solve checkpointed and cut-and-resumed, each held
+    bit-equal to the one-shot (fd gathered, metrics); rank 0's numbers."""
+    import numpy as np
+    import torch
+
+    from jpeg2png_tpu_torch.models import checkpoint, solver
+    from jpeg2png_tpu_torch.parallel import distributed
+    from jpeg2png_tpu_torch.parallel.mesh import stripe_mesh
+    from jpeg2png_tpu_torch.parallel.stripes import striped_steps
+
+    it = args.iterations
+    every, crash = max(1, 2 * it // 5), max(1, 4 * it // 5)
+    path = ROOT / "jpeg2png_tpu_torch" / "_build" / "striped_cards_ckpt.npz"
+    res, ckpt_s = _host_s(lambda: checkpoint.solve_striped_checkpointed(
+        *problem, stripe_mesh(), str(path), checkpoint_every=every), device)
+    _check(torch.equal(res.fdata, fd) and np.array_equal(res.metrics, metrics)
+           and res.resumed_from == 0 and not path.exists(),
+           "checkpointed solve differs from the one-shot solve")
+    mesh = stripe_mesh()
+    _, head, carry = striped_steps(*problem, mesh, nsteps=crash)
+    host, gather_s = _host_s(lambda: checkpoint.gather_striped_carry(carry),
+                             device)
+    fp = checkpoint.striped_fingerprint(
+        solver._geometry(problem[0], problem[2]), mesh.n, "f32",
+        *problem[3:], True)
+    _, save_s = _host_s(lambda: checkpoint.save_state(str(path), host, crash,
+                                                      fp), device)
+    nbytes = path.stat().st_size
+    del carry, host
+    res, resume_s = _host_s(lambda: checkpoint.solve_striped_checkpointed(
+        *problem, stripe_mesh(), str(path), checkpoint_every=every), device)
+    _check(torch.equal(res.fdata, fd) and res.resumed_from == crash
+           and np.array_equal(np.concatenate([head, res.metrics]), metrics)
+           and not path.exists(),
+           f"resumed solve (rank {distributed.rank()}, from "
+           f"{res.resumed_from}) differs from the one-shot solve")
+    return {"bit_equal": True, "every": every, "crash": crash,
+            "file_bytes": nbytes, "gather_s": gather_s, "save_s": save_s,
+            "checkpointed_s": ckpt_s, "resume_s": resume_s}
+
+
 def worker(args) -> None:
     """One process of the multi-process run: one band; rank 0 solves the
     reference on its own device and writes the results."""
@@ -108,15 +169,17 @@ def worker(args) -> None:
     device = distributed.band_device()
     problem = _problem(args)
     mesh = stripe_mesh()
-    (fd, _), ms = _timed(lambda: solve_striped(*problem, mesh), device)
+    (fd, metrics), ms = _timed(lambda: solve_striped(*problem, mesh), device)
     counts = dict(mesh.comm.counts)
     fd = distributed.gather_output(fd)
     worst = torch.tensor([ms], dtype=torch.float64, device=device)
     torch.distributed.all_reduce(worst, op=torch.distributed.ReduceOp.MAX)
+    ckpt = _checkpointed(args, problem, fd, metrics, device)
     if distributed.is_primary():
         ref, _ = solver.solve_joint(*problem, device=device, tier="two")
         out = {"ms": ms, "ms_slowest_rank": float(worst), "counts": counts,
-               "psnr_vs_two": _psnr(fd, ref), "world": world}
+               "psnr_vs_two": _psnr(fd, ref), "world": world,
+               "checkpoint": ckpt}
         pathlib.Path(os.environ["STRIPED_CARDS_OUT"]).write_text(
             json.dumps(out))
     distributed.barrier()
