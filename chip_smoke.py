@@ -6,8 +6,9 @@
 Phases (each raises on failure; the traceback then ends the run with a
 non-zero exit and no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the CUDA kernels from jpeg2png_tpu_torch/csrc (one nvcc per
-     source, in parallel) and print the build seconds and ptxas report;
+  2. build the host JPEG entropy decoder (cc) and the CUDA kernels from
+     jpeg2png_tpu_torch/csrc (one nvcc per source, in parallel) and print
+     the build seconds and ptxas report;
   3. TF32 off for the plain PyTorch versions;
   4. each kernel against its plain version on the card: K1 and K2 at the
      3072x2048 4:2:0 geometry and small odd ones (region gap, h_true < H,
@@ -81,7 +82,17 @@ non-zero exit and no result line):
      and cut at 40; the snapshot bytes, the seconds of the host gather,
      save_state and load_state (free disk checked first), and the wall
      time of each checkpointed solve against the one-shot's;
- 10. a JSON line of end-to-end numbers, one JSON line of kernel records,
+ 10. the reader (io/jpeg_reader.py on the C entropy decoder
+     csrc/jpeg_entropy.c, built in phase 2 with cc): every progressive
+     twin under tests/fixtures/torch_progressive/ read bit-equal to its
+     sequential original; the progressive golden (lineart64 q20 4:2:0
+     SOF2) through all four tiers, CSV rows 0-1 and PSNR > 45 dB at -i 5
+     and PSNR > 45 dB at -i 50; the smoke JPEG's progressive twin through
+     the default CLI, the same pixels and launch counts as the original;
+     read times: the smoke JPEG and its twin, the parent tree's reader
+     where jpeg2png_tpu_torch/_build/parent/jpeg_reader.py holds one, the
+     48 files on one thread and on 8;
+ 11. a JSON line of end-to-end numbers, one JSON line of kernel records,
      then the device line last.
 
 Imports nothing of JAX or of the JAX package jpeg2png_tpu.  Writes only
@@ -228,13 +239,16 @@ def phase_device():
 def phase_build():
     from jpeg2png_tpu_torch.kernels import _build
 
-    seconds = _build.build()
+    host_s = _build.build(list(_build.HOST_LIBRARIES))
+    log(f"build: {host_s:.2f} s for the host library "
+        f"{', '.join(_build.HOST_LIBRARIES)} (cc)")
+    seconds = _build.build(list(_build.LIBRARIES))
     log(f"build: {seconds:.1f} s for {', '.join(_build.LIBRARIES)}")
     for name, out in _build.build_log.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    return seconds
+    return seconds + host_s
 
 
 def _k1_case(rng, C, H, W, weight, prob, h_true=None, w_true=None):
@@ -2048,6 +2062,171 @@ def phase_serving(card, files, images):
     return runs
 
 
+# ------------------------------------------------ the reader (host C)
+
+PROG_TWINS = FIXTURES / "torch_progressive"
+PROG_GOLDEN = "lineart64_q20_420_prog"
+# the reader of an earlier tree, for timing in turns (gitignored; written
+# by `git show <commit>:jpeg2png_tpu_torch/io/jpeg_reader.py`)
+PARENT_READER = ROOT / "jpeg2png_tpu_torch" / "_build" / "parent" / \
+    "jpeg_reader.py"
+READ_REPS = 5
+
+
+def _twin_original(twin: pathlib.Path) -> pathlib.Path:
+    stem = twin.name.split("_prog")[0] + ".jpg"
+    for d in (FIXTURES, SERVING):
+        if (d / stem).exists():
+            return d / stem
+    raise SmokeFailure(f"no original for {twin.name}")
+
+
+def _read_s(read, path) -> float:
+    """Median host seconds of READ_REPS reads of one file."""
+    times = []
+    for _ in range(READ_REPS):
+        t0 = time.perf_counter()
+        read(path)
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[READ_REPS // 2]
+
+
+def _parent_read():
+    """The earlier tree's read_jpeg, or None where it was not provided."""
+    import importlib.util
+
+    if not PARENT_READER.exists():
+        return None
+    spec = importlib.util.spec_from_file_location("parent_jpeg_reader",
+                                                  PARENT_READER)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod      # dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod.read_jpeg
+
+
+def phase_reader(card, files):
+    """The JPEG reader (io/jpeg_reader.py on csrc/jpeg_entropy.c): every
+    progressive twin equal to its sequential original; the progressive
+    golden through every tier at -i 5 (CSV rows 0-1, PNG) and -i 50 (PNG);
+    the smoke JPEG's twin through the default CLI, pixel- and
+    launch-equal to the original's decode; read times (single files, the
+    parent tree's reader where provided, the 48-file corpus on one thread
+    and on the runner's threads)."""
+    import concurrent.futures
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from pngdec import decode_png
+
+    from jpeg2png_tpu_torch.cli import main as cli_main
+    from jpeg2png_tpu_torch.io import read_jpeg
+    from jpeg2png_tpu_torch.pipeline import decode_file
+    from jpeg2png_tpu_torch.utils.config import SolverConfig
+    from jpeg2png_tpu_torch.utils.logger import ConvergenceLogger
+
+    twins = sorted(PROG_TWINS.glob("*.jpg"))
+    require(len(twins) >= 10, f"{len(twins)} progressive twins")
+    for twin in twins:
+        a, b = read_jpeg(twin), read_jpeg(_twin_original(twin))
+        require(a.progressive and not b.progressive and not a.warnings
+                and (a.height, a.width) == (b.height, b.width)
+                and all(np.array_equal(pa.data, pb.data)
+                        and np.array_equal(pa.quant, pb.quant)
+                        for pa, pb in zip(a.planes, b.planes)),
+                f"{twin.name} does not read equal to its original")
+    log(f"  {len(twins)} progressive twins read bit-equal to their "
+        "sequential originals")
+
+    # the progressive golden through every tier
+    src = FIXTURES / f"{PROG_GOLDEN}.jpg"
+    gold5 = decode_png((FIXTURES / "golden" / f"{PROG_GOLDEN}_i5.png")
+                       .read_bytes())
+    gold50 = decode_png((FIXTURES / "golden" / f"{PROG_GOLDEN}_i50.png")
+                        .read_bytes())
+    csv_gold = _csv_rows(FIXTURES / "golden" / f"{PROG_GOLDEN}_i5.csv")[:2]
+    golden = {}
+    for tier in TIERS:
+        zero_counts()
+        log_path = OUT_DIR / f"{PROG_GOLDEN}_i5_{tier}.csv"
+        out5 = OUT_DIR / f"{PROG_GOLDEN}_i5_{tier}.png"
+        with open(log_path, "w") as f:
+            decode_file(str(src), str(out5), SolverConfig(iterations=(5,) * 3),
+                        logger=ConvergenceLogger(f), device=DEVICE, tier=tier)
+        ours = _csv_rows(log_path)[:2]
+        for col, rtol, atol in METRIC_GATES:
+            require(np.allclose(ours[:, col], csv_gold[:, col], rtol=rtol,
+                                atol=atol),
+                    f"{PROG_GOLDEN} CSV column {col} ({tier}): "
+                    f"{ours[:, col]} vs {csv_gold[:, col]}")
+        out50 = OUT_DIR / f"{PROG_GOLDEN}_i50_{tier}.png"
+        decode_file(str(src), str(out50), SolverConfig(), device=DEVICE,
+                    tier=tier)
+        # -i 5 with a CSV: 5 one-iteration chunks; then one -i 50 decode
+        mega = tier.startswith("mega")
+        _expect(read_counts(), tier_launches(tier, 5 + (1 if mega else 50)),
+                f"{PROG_GOLDEN} ({tier} tier)")
+        p5 = psnr(read_own_png(out5), gold5)
+        p50 = psnr(read_own_png(out50), gold50)
+        golden[tier] = {"i5": p5, "i50": p50}
+        log(f"  golden {PROG_GOLDEN} ({tier} tier): CSV rows 0-1 agree "
+            f"(rtol 6e-3), PSNR i5 {p5:.2f} dB, i50 {p50:.2f} dB")
+        require(p5 > 45.0 and p50 > 45.0,
+                f"{PROG_GOLDEN} ({tier}): PSNR {p5:.2f} / {p50:.2f} dB")
+
+    # the smoke JPEG's progressive twin through the default CLI
+    twin = PROG_TWINS / (SMOKE_JPEG.stem + "_prog.jpg")
+    outs, counts = {}, {}
+    for label, path in (("sequential", SMOKE_JPEG), ("progressive", twin)):
+        outs[label] = OUT_DIR / f"reader_{label}.png"
+        zero_counts()
+        rc = cli_main([str(path), "-o", str(outs[label]), "-f", "-q",
+                       "--device", DEVICE])
+        torch.cuda.synchronize()
+        counts[label] = read_counts()
+        require(rc == 0, f"cli.main on the {label} smoke JPEG returned {rc}")
+    require(counts["sequential"] == counts["progressive"],
+            f"smoke twin launches {counts}")
+    require(np.array_equal(read_own_png(outs["sequential"]),
+                           read_own_png(outs["progressive"])),
+            "the smoke JPEG's twin decodes to other pixels")
+    log(f"  smoke JPEG's progressive twin, default CLI: the same pixels and "
+        f"launches as the original ({counts['progressive']})")
+
+    # read times
+    parent = _parent_read()
+    times = {"smoke_s": _read_s(read_jpeg, SMOKE_JPEG),
+             "smoke_twin_s": _read_s(read_jpeg, twin),
+             "parent_smoke_s": (_read_s(parent, SMOKE_JPEG) if parent
+                                else None)}
+    t0 = time.perf_counter()
+    for f in files:
+        read_jpeg(f)
+    times["corpus_one_thread_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(read_jpeg, files))
+    times["corpus_8_threads_s"] = time.perf_counter() - t0
+    if parent:
+        t0 = time.perf_counter()
+        for f in files:
+            parent(f)
+        times["parent_corpus_one_thread_s"] = time.perf_counter() - t0
+    log("  reads (host clock, median of %d): smoke JPEG %.4f s, its twin "
+        "%.4f s, the parent reader %s; %d files on one thread %.4f s, on 8 "
+        "threads %.4f s%s  [%s]" % (
+            READ_REPS, times["smoke_s"], times["smoke_twin_s"],
+            "%.4f s" % times["parent_smoke_s"] if parent else "not provided",
+            len(files), times["corpus_one_thread_s"],
+            times["corpus_8_threads_s"],
+            (", the parent reader on one thread %.4f s"
+             % times["parent_corpus_one_thread_s"]) if parent else "", card))
+    return {"twins": len(twins), "golden_psnr": golden,
+            "smoke_twin_launches": counts["progressive"], "read": times}
+
+
 # ------------------------------------ the row-striped path (K6, K7)
 
 STRIPE_BANDS = 4          # bands of the striped runs, all on the one card
@@ -2821,12 +3000,15 @@ def main() -> int:
     records += striped_records
     log("phase 9: checkpoint / resume, every tier and both striped bodies")
     ckpt = phase_checkpoint(card)
+    log("phase 10: the reader, progressive input and read times")
+    reader = phase_reader(card, files)
     log(json.dumps({"card": card, "build_s": build_s, "single": single,
                     "golden_i1000_psnr": converged,
                     "golden_striple_psnr": striple, "k3_points": k3_points,
                     "tier_sweep": sweep,
                     "serving": {k: v[1] for k, v in serving.items()},
                     "striped": striped, "checkpoint": ckpt,
+                    "reader": reader,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

@@ -16,11 +16,13 @@ row bands over several devices or processes (parallel/).
 Layout (each module has its counterpart in the JAX package
 jpeg2png_tpu/, which stays the reference; this package imports none of
 it):
-    io/        JPEG DCT-coefficient reader (Python + numpy) and PNG writer
+    io/        JPEG DCT-coefficient reader (markers in Python, the entropy
+               decoder in C: csrc/jpeg_entropy.c) and PNG writer
     ops/       block DCT, TV/TGV2 gather-form gradients, quantization-box
                projection, prob term, color conversion (plain PyTorch)
     kernels/   the CUDA kernels' wrappers and plain versions; the sources
-               are in csrc/ and build at first use (kernels/_build.py)
+               are in csrc/ and build at first use (kernels/_build.py,
+               which also builds the host entropy decoder with cc)
     models/    the FISTA projected-subgradient solver (four tiers) and
                checkpoint/resume of long solves (models/checkpoint.py)
     parallel/  the row-striped solve: band meshes, torch.distributed

@@ -1,16 +1,22 @@
-"""Builds the port's CUDA kernels at first use and loads them with ctypes.
+"""Builds the port's native libraries at first use and loads them with
+ctypes.
 
 Each source under jpeg2png_tpu_torch/csrc/ exports a plain C interface
-(no PyTorch or Python headers), so `nvcc` compiles it in seconds into a
-shared library.  Libraries land in jpeg2png_tpu_torch/_build/ (listed in
-.gitignore), named by a hash of the source and the flags: an unchanged
-tree never rebuilds, and a changed source never loads a stale library.
-`build()` starts one `nvcc` per library, all at once, and waits for
-them.
+(no PyTorch or Python headers).  The CUDA kernels (*.cu) compile with
+`nvcc` in seconds each; the host JPEG entropy decoder (jpeg_entropy.c)
+compiles with the C compiler ($CC, else `cc`) and needs no CUDA, so the
+CPU tests build and run it too.  Libraries land in
+jpeg2png_tpu_torch/_build/ (listed in .gitignore), named by a hash of
+the source and the flags: an unchanged tree never rebuilds, and a
+changed source never loads a stale library.  `build()` starts one
+compiler per library, all at once, and waits for them; each writes a
+temporary file that `os.replace` moves into place, so processes that
+build the same library at once are harmless.
 
 The CUDA toolkit is found through $CUDA_HOME, then /usr/local/cuda, then
 $PATH.  Nothing here runs when the package is imported: the CPU tests
-import every module on a machine without `nvcc`.
+import every module on a machine without `nvcc`.  A failed build raises
+RuntimeError with the compiler's output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -48,6 +54,14 @@ LIBRARIES = {
     "project_lite": ("project_lite.cu", []),
 }
 
+# host libraries: name -> source file under csrc/, built with the C
+# compiler ($CC, else cc)
+HOST_LIBRARIES = {
+    # the JPEG entropy decoder (io/jpeg_reader.py)
+    "jpeg_entropy": "jpeg_entropy.c",
+}
+HOST_FLAGS = ["-std=c11", "-O2", "-shared", "-fPIC"]
+
 _lock = threading.Lock()
 _handles: dict = {}
 # name -> compiler output of the last build in this process (ptxas prints
@@ -67,47 +81,64 @@ def nvcc_path() -> str:
     return found
 
 
-def _command(name: str, out: pathlib.Path) -> list:
+def _source_flags(name: str):
+    if name in HOST_LIBRARIES:
+        return HOST_LIBRARIES[name], HOST_FLAGS
     src, extra = LIBRARIES[name]
-    return [nvcc_path(), *ARCH_FLAGS, *COMMON_FLAGS, *extra,
-            "-o", str(out), str(CSRC / src)]
+    return src, ARCH_FLAGS + COMMON_FLAGS + extra
+
+
+def _command(name: str, out: pathlib.Path) -> list:
+    src, flags = _source_flags(name)
+    if name in HOST_LIBRARIES:
+        compiler = os.environ.get("CC") or "cc"
+    else:
+        compiler = nvcc_path()
+    return [compiler, *flags, "-o", str(out), str(CSRC / src)]
 
 
 def library_path(name: str) -> pathlib.Path:
-    src, extra = LIBRARIES[name]
+    src, flags = _source_flags(name)
     h = hashlib.sha256((CSRC / src).read_bytes())
-    h.update(" ".join(ARCH_FLAGS + COMMON_FLAGS + extra).encode())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> float:
-    """Compile every library in `names` (default: all) that is not built
-    yet, one nvcc process each, all started together.  Returns the
-    seconds spent; raises RuntimeError with the compiler output if any
-    build fails."""
-    names = list(LIBRARIES) if names is None else list(names)
+    """Compile every library in `names` (default: all, CUDA and host)
+    that is not built yet, one compiler process each, all started
+    together.  Returns the seconds spent; raises RuntimeError with the
+    compiler output if any build fails."""
+    names = ([*LIBRARIES, *HOST_LIBRARIES] if names is None
+             else list(names))
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    failed = []
     for name in names:
         path = library_path(name)
         if path.exists():
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (path, tmp, subprocess.Popen(
-            _command(name, tmp), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    failed = []
+        cmd = _command(name, tmp)
+        try:
+            procs[name] = (path, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        except OSError as e:
+            failed.append(f"--- {name} ({' '.join(cmd)}) ---\n{e}")
     for name, (path, tmp, proc) in procs.items():
         out, _ = proc.communicate()
         build_log[name] = out
         if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{out}")
+            failed.append(
+                f"--- {name} ({proc.args[0]} exit {proc.returncode}) ---\n{out}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, path)   # atomic: a concurrent build is harmless
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise RuntimeError("native library build failed:\n"
+                           + "\n".join(failed))
     return time.perf_counter() - t0
 
 

@@ -42,10 +42,20 @@ def test_torch_joint_i5_matches_reference(name, trace_iters, fixtures_dir):
     assert p > 45.0, f"PSNR vs reference output too low: {p:.2f} dB"
 
 
-def test_torch_progressive_input_is_refused_clearly(fixtures_dir):
-    # the port's reader decodes sequential Huffman JPEGs only
-    with pytest.raises(ValueError, match="progressive JPEG is not supported"):
-        read_jpeg(fixtures_dir / "lineart64_q20_420_prog.jpg")
+def test_torch_progressive_matches_reference(fixtures_dir):
+    # a progressive (SOF2) input against the reference binary's golden:
+    # CSV rows 0-1 before the chaos point and the PNG
+    img = read_jpeg(fixtures_dir / "lineart64_q20_420_prog.jpg")
+    assert img.progressive
+    result = smooth_decode(img, SolverConfig(iterations=(5,) * 3),
+                           device="cpu")
+    golden = load_golden_csv(
+        fixtures_dir / "golden" / "lineart64_q20_420_prog_i5.csv")
+    assert_metrics_close(result.metrics_per_channel[3][:2], golden[3][:2])
+    gold_png = np.asarray(Image.open(
+        fixtures_dir / "golden" / "lineart64_q20_420_prog_i5.png"))
+    p = psnr(result.pixels, gold_png)
+    assert p > 45.0, f"PSNR vs reference output too low: {p:.2f} dB"
 
 
 def test_torch_16bit_output_matches_reference(fixtures_dir):

@@ -1,5 +1,6 @@
-"""PyTorch port IO: the numpy JPEG reader against the JAX package's
-libjpeg reader, the zlib PNG writer, and CLI parsing."""
+"""PyTorch port IO: the JPEG reader (Python markers, the C entropy
+decoder in csrc/jpeg_entropy.c) against the JAX package's libjpeg reader,
+the zlib PNG writer, and CLI parsing."""
 
 import numpy as np
 import pytest
@@ -18,9 +19,12 @@ torch.set_num_threads(2)
 
 ALL_JPEGS = sorted(p.relative_to(FIXTURES).as_posix()
                    for p in FIXTURES.rglob("*.jpg"))
-# sequential Huffman streams decode; these two the reader refuses
-REFUSED = {"lineart64_q20_420_prog.jpg": "progressive",
-           "lineart64_q20_420_arith.jpg": "arithmetic-coded"}
+# sequential and progressive Huffman streams decode; arithmetic coding the
+# reader refuses
+REFUSED = {"lineart64_q20_420_arith.jpg": "arithmetic-coded"}
+# progressive twins (tools/torch_make_progressive.c): the coefficients of
+# their sequential originals, in fixtures/ or fixtures/torch_serving/
+TWINS = sorted(p.name for p in (FIXTURES / "torch_progressive").glob("*.jpg"))
 
 
 def assert_same_image(a, b):
@@ -44,6 +48,40 @@ def test_torch_reader_matches_libjpeg_reader(name):
             read_jpeg(path)
         return
     assert_same_image(read_jpeg(path), read_jpeg_ref(path))
+
+
+def twin_original(name):
+    stem = name.split("_prog")[0] + ".jpg"
+    for d in (FIXTURES, FIXTURES / "torch_serving"):
+        if (d / stem).exists():
+            return d / stem
+    raise FileNotFoundError(stem)
+
+
+@pytest.mark.parametrize("name", TWINS)
+def test_torch_progressive_twin_equals_its_original(name):
+    twin = read_jpeg(FIXTURES / "torch_progressive" / name)
+    orig = read_jpeg(twin_original(name))
+    assert twin.progressive and not orig.progressive
+    assert (twin.height, twin.width) == (orig.height, orig.width)
+    assert twin.warnings == () and twin.n_warnings == 0
+    for pt, po in zip(twin.planes, orig.planes):
+        assert (pt.h_samp, pt.w_samp) == (po.h_samp, po.w_samp)
+        np.testing.assert_array_equal(pt.data, po.data)
+        np.testing.assert_array_equal(pt.quant, po.quant)
+
+
+def test_torch_reader_without_compiler_raises(tmp_path, monkeypatch):
+    """No Python decoder is left to fall back to: a failed build of the
+    entropy decoder raises with the compiler's complaint."""
+    from jpeg2png_tpu_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "fresh")
+    monkeypatch.setattr(_build, "_handles", {})
+    monkeypatch.setenv("CC", str(tmp_path / "no-such-cc"))
+    with pytest.raises(RuntimeError, match="no-such-cc"):
+        read_jpeg(FIXTURES / "lineart64_q20_420.jpg")
+    assert not list((tmp_path / "fresh").glob("*.so"))
 
 
 @pytest.mark.parametrize("name,cut", [

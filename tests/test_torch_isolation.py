@@ -182,3 +182,13 @@ def test_torch_cpu_tensors_take_the_plain_version():
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert grad_step.fused_grad.launches == 0
+
+
+def test_torch_host_decoder_is_plain_c():
+    """The entropy decoder builds with a plain C compiler: standard
+    headers only, no Python, PyTorch or CUDA."""
+    import re
+
+    src = (REPO / "jpeg2png_tpu_torch" / "csrc" / "jpeg_entropy.c").read_text()
+    includes = set(re.findall(r'#include\s*[<"]([^>"]+)[>"]', src))
+    assert includes <= {"stddef.h", "stdint.h", "string.h"}, includes
