@@ -92,7 +92,17 @@ non-zero exit and no result line):
      read times: the smoke JPEG and its twin, the parent tree's reader
      where jpeg2png_tpu_torch/_build/parent/jpeg_reader.py holds one, the
      48 files on one thread and on 8;
- 11. a JSON line of end-to-end numbers, one JSON line of kernel records,
+ 11. the reader on arithmetic-coded input (SOF9, SOF10; the QM decoder
+     in csrc/jpeg_entropy.c): every arithmetic twin under
+     tests/fixtures/torch_arith/ (and lineart64's) read bit-equal to its
+     Huffman original; lineart64's arithmetic twin through all four tiers
+     against the original's goldens (-i 5 CSV rows 0-1 and PSNR > 45 dB,
+     -i 50 PSNR > 45 dB); the smoke JPEG's sequential and progressive
+     arithmetic twins through the default CLI, the original's pixels and
+     launch counts (K1 = K2 = 50) and their wall seconds; read times of
+     the smoke JPEG, its Huffman progressive twin and its two arithmetic
+     twins;
+ 12. a JSON line of end-to-end numbers, one JSON line of kernel records,
      then the device line last.
 
 Imports nothing of JAX or of the JAX package jpeg2png_tpu.  Writes only
@@ -2105,6 +2115,89 @@ def _parent_read():
     return mod.read_jpeg
 
 
+def _golden_tiers(src: pathlib.Path, stem: str) -> dict:
+    """`src` through every tier against the reference's goldens `stem`
+    (its own, or its Huffman original's where the coefficients are the
+    same): -i 5 with a CSV (rows 0-1 within METRIC_GATES, PSNR > 45 dB)
+    and -i 50 (PSNR > 45 dB), each tier's launch counts.  Returns the
+    PSNRs per tier."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from pngdec import decode_png
+
+    from jpeg2png_tpu_torch.pipeline import decode_file
+    from jpeg2png_tpu_torch.utils.config import SolverConfig
+    from jpeg2png_tpu_torch.utils.logger import ConvergenceLogger
+
+    gold5 = decode_png((FIXTURES / "golden" / f"{stem}_i5.png").read_bytes())
+    gold50 = decode_png((FIXTURES / "golden" / f"{stem}_i50.png")
+                        .read_bytes())
+    csv_gold = _csv_rows(FIXTURES / "golden" / f"{stem}_i5.csv")[:2]
+    golden = {}
+    for tier in TIERS:
+        zero_counts()
+        log_path = OUT_DIR / f"{src.stem}_i5_{tier}.csv"
+        out5 = OUT_DIR / f"{src.stem}_i5_{tier}.png"
+        with open(log_path, "w") as f:
+            decode_file(str(src), str(out5), SolverConfig(iterations=(5,) * 3),
+                        logger=ConvergenceLogger(f), device=DEVICE, tier=tier)
+        ours = _csv_rows(log_path)[:2]
+        for col, rtol, atol in METRIC_GATES:
+            require(np.allclose(ours[:, col], csv_gold[:, col], rtol=rtol,
+                                atol=atol),
+                    f"{src.name} CSV column {col} ({tier}): "
+                    f"{ours[:, col]} vs {csv_gold[:, col]}")
+        out50 = OUT_DIR / f"{src.stem}_i50_{tier}.png"
+        decode_file(str(src), str(out50), SolverConfig(), device=DEVICE,
+                    tier=tier)
+        # -i 5 with a CSV: 5 one-iteration chunks; then one -i 50 decode
+        mega = tier.startswith("mega")
+        _expect(read_counts(), tier_launches(tier, 5 + (1 if mega else 50)),
+                f"{src.name} ({tier} tier)")
+        p5 = psnr(read_own_png(out5), gold5)
+        p50 = psnr(read_own_png(out50), gold50)
+        golden[tier] = {"i5": p5, "i50": p50}
+        log(f"  {src.name} against golden {stem} ({tier} tier): CSV rows "
+            f"0-1 agree (rtol 6e-3), PSNR i5 {p5:.2f} dB, i50 {p50:.2f} dB")
+        require(p5 > 45.0 and p50 > 45.0,
+                f"{src.name} ({tier}): PSNR {p5:.2f} / {p50:.2f} dB")
+    return golden
+
+
+def _cli_twins(twins: dict):
+    """The default CLI on the smoke JPEG and on each of its twins (label
+    -> path): the same pixels and launch counts as the original, which
+    are the two tier's at -i 50 (K1 = K2 = 50).  Returns the counts and
+    the wall seconds (host clock) of each decode, per label."""
+    import numpy as np
+    import torch
+
+    from jpeg2png_tpu_torch.cli import main as cli_main
+
+    outs, counts, walls = {}, {}, {}
+    for label, path in (("sequential", SMOKE_JPEG), *twins.items()):
+        outs[label] = OUT_DIR / f"reader_{label}.png"
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = cli_main([str(path), "-o", str(outs[label]), "-f", "-q",
+                       "--device", DEVICE])
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        counts[label] = read_counts()
+        require(rc == 0, f"cli.main on the {label} smoke JPEG returned {rc}")
+        _expect(counts[label], tier_launches("two", 50),
+                f"the {label} smoke JPEG, default CLI")
+    for label in twins:
+        require(np.array_equal(read_own_png(outs["sequential"]),
+                               read_own_png(outs[label])),
+                f"the smoke JPEG's {label} twin decodes to other pixels")
+        log(f"  smoke JPEG's {label} twin, default CLI: the same pixels and "
+            f"launches as the original ({counts[label]}); wall "
+            f"{walls[label]:.4f} s, the original's {walls['sequential']:.4f} s")
+    return counts, walls
+
+
 def phase_reader(card, files):
     """The JPEG reader (io/jpeg_reader.py on csrc/jpeg_entropy.c): every
     progressive twin equal to its sequential original; the progressive
@@ -2116,16 +2209,8 @@ def phase_reader(card, files):
     import concurrent.futures
 
     import numpy as np
-    import torch
 
-    sys.path.insert(0, str(ROOT / "tests"))
-    from pngdec import decode_png
-
-    from jpeg2png_tpu_torch.cli import main as cli_main
     from jpeg2png_tpu_torch.io import read_jpeg
-    from jpeg2png_tpu_torch.pipeline import decode_file
-    from jpeg2png_tpu_torch.utils.config import SolverConfig
-    from jpeg2png_tpu_torch.utils.logger import ConvergenceLogger
 
     twins = sorted(PROG_TWINS.glob("*.jpg"))
     require(len(twins) >= 10, f"{len(twins)} progressive twins")
@@ -2141,59 +2226,11 @@ def phase_reader(card, files):
         "sequential originals")
 
     # the progressive golden through every tier
-    src = FIXTURES / f"{PROG_GOLDEN}.jpg"
-    gold5 = decode_png((FIXTURES / "golden" / f"{PROG_GOLDEN}_i5.png")
-                       .read_bytes())
-    gold50 = decode_png((FIXTURES / "golden" / f"{PROG_GOLDEN}_i50.png")
-                        .read_bytes())
-    csv_gold = _csv_rows(FIXTURES / "golden" / f"{PROG_GOLDEN}_i5.csv")[:2]
-    golden = {}
-    for tier in TIERS:
-        zero_counts()
-        log_path = OUT_DIR / f"{PROG_GOLDEN}_i5_{tier}.csv"
-        out5 = OUT_DIR / f"{PROG_GOLDEN}_i5_{tier}.png"
-        with open(log_path, "w") as f:
-            decode_file(str(src), str(out5), SolverConfig(iterations=(5,) * 3),
-                        logger=ConvergenceLogger(f), device=DEVICE, tier=tier)
-        ours = _csv_rows(log_path)[:2]
-        for col, rtol, atol in METRIC_GATES:
-            require(np.allclose(ours[:, col], csv_gold[:, col], rtol=rtol,
-                                atol=atol),
-                    f"{PROG_GOLDEN} CSV column {col} ({tier}): "
-                    f"{ours[:, col]} vs {csv_gold[:, col]}")
-        out50 = OUT_DIR / f"{PROG_GOLDEN}_i50_{tier}.png"
-        decode_file(str(src), str(out50), SolverConfig(), device=DEVICE,
-                    tier=tier)
-        # -i 5 with a CSV: 5 one-iteration chunks; then one -i 50 decode
-        mega = tier.startswith("mega")
-        _expect(read_counts(), tier_launches(tier, 5 + (1 if mega else 50)),
-                f"{PROG_GOLDEN} ({tier} tier)")
-        p5 = psnr(read_own_png(out5), gold5)
-        p50 = psnr(read_own_png(out50), gold50)
-        golden[tier] = {"i5": p5, "i50": p50}
-        log(f"  golden {PROG_GOLDEN} ({tier} tier): CSV rows 0-1 agree "
-            f"(rtol 6e-3), PSNR i5 {p5:.2f} dB, i50 {p50:.2f} dB")
-        require(p5 > 45.0 and p50 > 45.0,
-                f"{PROG_GOLDEN} ({tier}): PSNR {p5:.2f} / {p50:.2f} dB")
+    golden = _golden_tiers(FIXTURES / f"{PROG_GOLDEN}.jpg", PROG_GOLDEN)
 
     # the smoke JPEG's progressive twin through the default CLI
     twin = PROG_TWINS / (SMOKE_JPEG.stem + "_prog.jpg")
-    outs, counts = {}, {}
-    for label, path in (("sequential", SMOKE_JPEG), ("progressive", twin)):
-        outs[label] = OUT_DIR / f"reader_{label}.png"
-        zero_counts()
-        rc = cli_main([str(path), "-o", str(outs[label]), "-f", "-q",
-                       "--device", DEVICE])
-        torch.cuda.synchronize()
-        counts[label] = read_counts()
-        require(rc == 0, f"cli.main on the {label} smoke JPEG returned {rc}")
-    require(counts["sequential"] == counts["progressive"],
-            f"smoke twin launches {counts}")
-    require(np.array_equal(read_own_png(outs["sequential"]),
-                           read_own_png(outs["progressive"])),
-            "the smoke JPEG's twin decodes to other pixels")
-    log(f"  smoke JPEG's progressive twin, default CLI: the same pixels and "
-        f"launches as the original ({counts['progressive']})")
+    counts, _ = _cli_twins({"progressive": twin})
 
     # read times
     parent = _parent_read()
@@ -2225,6 +2262,66 @@ def phase_reader(card, files):
              % times["parent_corpus_one_thread_s"]) if parent else "", card))
     return {"twins": len(twins), "golden_psnr": golden,
             "smoke_twin_launches": counts["progressive"], "read": times}
+
+
+# ------------------------------------------------ the reader, arithmetic
+
+ARITH_TWINS = FIXTURES / "torch_arith"
+ARITH_GOLDEN = "lineart64_q20_420"      # its arithmetic twin has its goldens
+
+
+def phase_arith_reader(card):
+    """Arithmetic-coded input (SOF9, SOF10; the QM decoder in
+    csrc/jpeg_entropy.c): every arithmetic twin (tests/fixtures/
+    torch_arith/ and lineart64's) reads bit-equal to its Huffman original;
+    lineart64's arithmetic twin through every tier against the original's
+    goldens (-i 5 CSV rows 0-1 and PNG, -i 50 PNG); the smoke JPEG's
+    sequential and progressive arithmetic twins through the default CLI,
+    pixel- and launch-equal to the original (K1 = K2 = 50), with the
+    decodes' wall seconds; read times of the smoke JPEG, its Huffman
+    progressive twin and its two arithmetic twins."""
+    import numpy as np
+
+    from jpeg2png_tpu_torch.io import read_jpeg
+
+    twins = sorted(ARITH_TWINS.glob("*.jpg")) + [
+        FIXTURES / f"{ARITH_GOLDEN}_arith.jpg"]
+    require(len(twins) >= 21, f"{len(twins)} arithmetic twins")
+    for twin in twins:
+        a = read_jpeg(twin)
+        b = read_jpeg(FIXTURES / (twin.name.split("_arith")[0] + ".jpg"))
+        require(a.progressive == ("_prog" in twin.name) and not b.progressive
+                and not a.warnings and a.n_warnings == 0
+                and (a.height, a.width) == (b.height, b.width)
+                and all((pa.h_samp, pa.w_samp) == (pb.h_samp, pb.w_samp)
+                        and np.array_equal(pa.data, pb.data)
+                        and np.array_equal(pa.quant, pb.quant)
+                        for pa, pb in zip(a.planes, b.planes)),
+                f"{twin.name} does not read equal to its original")
+    log(f"  {len(twins)} arithmetic twins read bit-equal to their Huffman "
+        "originals")
+
+    golden = _golden_tiers(FIXTURES / f"{ARITH_GOLDEN}_arith.jpg",
+                           ARITH_GOLDEN)
+
+    seq = ARITH_TWINS / (SMOKE_JPEG.stem + "_arith.jpg")
+    prog = ARITH_TWINS / (SMOKE_JPEG.stem + "_arith_prog.jpg")
+    counts, walls = _cli_twins({"arith": seq, "arith_prog": prog})
+
+    files = {"smoke_s": SMOKE_JPEG,
+             "smoke_prog_s": PROG_TWINS / (SMOKE_JPEG.stem + "_prog.jpg"),
+             "smoke_arith_s": seq, "smoke_arith_prog_s": prog}
+    times = {k: _read_s(read_jpeg, f) for k, f in files.items()}
+    log("  reads (host clock, median of %d warm reads): smoke JPEG %.4f s, "
+        "its Huffman progressive twin %.4f s, arithmetic %.4f s (%.2fx), "
+        "arithmetic progressive %.4f s (%.2fx)  [%s]" % (
+            READ_REPS, times["smoke_s"], times["smoke_prog_s"],
+            times["smoke_arith_s"], times["smoke_arith_s"] / times["smoke_s"],
+            times["smoke_arith_prog_s"],
+            times["smoke_arith_prog_s"] / times["smoke_s"], card))
+    return {"twins": len(twins), "golden_psnr": golden,
+            "smoke_twin_launches": counts["arith"], "read": times,
+            "cli_s": walls}
 
 
 # ------------------------------------ the row-striped path (K6, K7)
@@ -3002,13 +3099,15 @@ def main() -> int:
     ckpt = phase_checkpoint(card)
     log("phase 10: the reader, progressive input and read times")
     reader = phase_reader(card, files)
+    log("phase 11: the reader, arithmetic-coded input and read times")
+    reader_arith = phase_arith_reader(card)
     log(json.dumps({"card": card, "build_s": build_s, "single": single,
                     "golden_i1000_psnr": converged,
                     "golden_striple_psnr": striple, "k3_points": k3_points,
                     "tier_sweep": sweep,
                     "serving": {k: v[1] for k, v in serving.items()},
                     "striped": striped, "checkpoint": ckpt,
-                    "reader": reader,
+                    "reader": reader, "reader_arith": reader_arith,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

@@ -221,20 +221,40 @@ def main(argv=None, stats=None) -> int:
 
     # lazy imports so --help/--version don't pay for torch startup
     from jpeg2png_tpu_torch import resolve_device
-    from jpeg2png_tpu_torch.pipeline import decode_file
-    from jpeg2png_tpu_torch.utils.logger import ConvergenceLogger
-    from jpeg2png_tpu_torch.utils.progress import ProgressBar
+    from jpeg2png_tpu_torch.parallel import distributed
 
     device = resolve_device(args.device)   # no card: RuntimeError, no fallback
     batched = args.tpu_batch and nin > 1 and not cfg.separate_components
+    # a group this call joins, it leaves before returning; a caller's
+    # group stays joined
+    joined_here = False
     if args.tpu_distributed:
         if batched:
             raise SystemExit("--tpu-batch does not run under "
                              "--tpu-distributed in this package")
-        from jpeg2png_tpu_torch.parallel.distributed import initialize
-        initialize(device=device)
+        joined_here = not distributed.is_joined()
+        distributed.initialize(device=device)
+    try:
+        rc = _decode_all(args, cfg, bits, outfiles, device, batched, stats)
+    except BaseException:
+        if joined_here:     # the other processes may never reach a barrier
+            distributed.shutdown(sync=False)
+        raise
+    if joined_here:
+        distributed.shutdown()
+    return rc
+
+
+def _decode_all(args, cfg, bits, outfiles, device, batched, stats) -> int:
+    """Every input's decode (one after another, on threads, or batched);
+    returns the exit code."""
     from jpeg2png_tpu_torch.parallel.distributed import (
         is_multi_process, is_primary)
+    from jpeg2png_tpu_torch.pipeline import decode_file
+    from jpeg2png_tpu_torch.utils.logger import ConvergenceLogger
+    from jpeg2png_tpu_torch.utils.progress import ProgressBar
+
+    nin = len(args.inputs)
     # host side effects happen once, on rank 0: one CSV, one progress bar
     primary = is_primary()
     csv_f = open(args.csv_log, "w") if (args.csv_log and primary) else None

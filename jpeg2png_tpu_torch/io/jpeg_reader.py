@@ -5,20 +5,23 @@ The port needs no libjpeg.  This module parses the JPEG markers itself
 and hands each scan to the C decoder in csrc/jpeg_entropy.c (built with
 the C compiler at first use, loaded with ctypes, which releases the
 interpreter lock for the call), never computing pixels: the solver wants
-the exact integer lattice (reference: jpeg.c:22-80).  It reads Huffman
-JPEGs with 8-bit samples: baseline and extended sequential (SOF0, SOF1)
-and progressive (SOF2), interleaved or not, with or without restart
-intervals.  Arithmetic-coded (SOF9-11, SOF13-15), lossless and
-hierarchical streams raise ValueError.
+the exact integer lattice (reference: jpeg.c:22-80).  It reads every DCT
+JPEG with 8-bit samples that libjpeg-turbo reads: Huffman-coded baseline
+and extended sequential (SOF0, SOF1) and progressive (SOF2), and
+arithmetic-coded sequential (SOF9) and progressive (SOF10), interleaved or
+not, with or without restart intervals.  Lossless (SOF3, SOF11) and
+hierarchical (SOF5-7, SOF13-15) streams raise ValueError, as libjpeg-turbo
+refuses them.
 
 The dataclasses keep the JAX package's reader interface: per component
 an int16 tensor [nby, nbx, 8, 8] in natural order, its uint16 quant
 table [8, 8] and its replication factors.  Markers and scans are handled
-as libjpeg-turbo handles them (jdmarker.c, jdinput.c, jdphuff.c): each
-component's quantization table is latched at the first scan that holds
-it, progressive scan parameters are validated with libjpeg's texts, and
-corrupt or truncated data decodes to libjpeg's coefficients with its
-warning texts on JpegImage.warnings.
+as libjpeg-turbo handles them (jdmarker.c, jdinput.c, jdphuff.c,
+jdarith.c): each component's quantization table is latched at the first
+scan that holds it, progressive scan parameters are validated with
+libjpeg's texts, DAC segments set the arithmetic conditioning (libjpeg's
+defaults where none is given), and corrupt or truncated data decodes to
+libjpeg's coefficients with its warning texts on JpegImage.warnings.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ _NATURAL = (
 _W_EOF = "Premature end of JPEG file"
 _W_HIT_MARKER = "Corrupt JPEG data: premature end of data segment"
 _W_BAD_CODE = "Corrupt JPEG data: bad Huffman code"
+_W_ARITH_BAD_CODE = "Corrupt JPEG data: bad arithmetic code"
 _W_MUST_RESYNC = "Corrupt JPEG data: found marker 0x{:02x} instead of RST{}"
 _W_EXTRANEOUS = ("Corrupt JPEG data: {} extraneous bytes before marker "
                  "0x{:02x}")
@@ -53,11 +57,24 @@ _W_BOGUS_PROGRESSION = ("Inconsistent progression sequence for component {} "
                         "coefficient {}")
 _W_JFIF_MAJOR = "Warning: unknown JFIF revision number {}.{:02d}"
 _C_WARNINGS = {1: _W_EOF, 2: _W_HIT_MARKER, 3: _W_BAD_CODE,
-               4: _W_MUST_RESYNC, 5: _W_EXTRANEOUS}
+               4: _W_MUST_RESYNC, 5: _W_EXTRANEOUS, 6: _W_ARITH_BAD_CODE}
 _C_ERRORS = {-1: "Bogus Huffman table definition",
              -2: "DCT coefficient out of range"}
 _WARN_CAP = 16           # warnings the C decoder records per scan
 _MAX_BLOCKS_IN_MCU = 10  # D_MAX_BLOCKS_IN_MCU
+_N_ARITH_TABLES = 16     # NUM_ARITH_TBLS: conditioning tables 0-15
+# the frame types libjpeg-turbo refuses, by SOF marker
+_UNSUPPORTED_SOF = {
+    0xC3: "lossless (Huffman, SOF3)",
+    0xC5: "differential sequential (Huffman, SOF5)",
+    0xC6: "differential progressive (Huffman, SOF6)",
+    0xC7: "differential lossless (Huffman, SOF7)",
+    0xC8: "reserved JPG extension (SOF8)",
+    0xCB: "lossless (arithmetic, SOF11)",
+    0xCD: "differential sequential (arithmetic, SOF13)",
+    0xCE: "differential progressive (arithmetic, SOF14)",
+    0xCF: "differential lossless (arithmetic, SOF15)",
+}
 
 
 @dataclasses.dataclass
@@ -133,7 +150,7 @@ def _decode_scan_fn():
         p = ctypes.c_void_p
         i32, i64 = ctypes.c_int32, ctypes.c_int64
         fn.argtypes = [ctypes.c_char_p, i64, p, i32, p, p, p, p, i32, i32,
-                       i32, i32, i32, i32, i32, i32, p, i32, p]
+                       i32, i32, i32, i32, i32, i32, p, p, i32, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -215,7 +232,7 @@ def _latch_quant(cp, qtabs):
     cp["quant"] = qtabs[cp["tq"]].copy()
 
 
-def _parse_sof(body, progressive):
+def _parse_sof(body, progressive, arith):
     if len(body) < 6:
         _fail("Bogus SOF marker length")
     precision = body[0]
@@ -252,8 +269,8 @@ def _parse_sof(body, progressive):
         cp["nby_alloc"] = mcus_y * cp["v"]
         cp["nbx_alloc"] = mcus_x * cp["h"]
     return dict(height=height, width=width, comps=comps, mcus_x=mcus_x,
-                mcus_y=mcus_y, progressive=progressive, planes=None,
-                scans=0, multiple_scans=True)
+                mcus_y=mcus_y, progressive=progressive, arith=arith,
+                planes=None, scans=0, multiple_scans=True)
 
 
 def _progression(comps, scan_comps, ss, se, ah, al, warn):
@@ -317,7 +334,7 @@ def _decode_scan(data, pos, body, frame, tabs, restart, src, warn):
     """One SOS: validate it as libjpeg does, latch the quant tables of
     its components, and entropy-decode its data in C.  Returns (offset
     of the next unread byte, the marker that ended the scan or 0)."""
-    qtabs, dc_tabs, ac_tabs = tabs
+    qtabs, dc_tabs, ac_tabs, cond = tabs
     comps = frame["comps"]
     ns = body[0] if body else 0
     if ns < 1 or ns > 4 or len(body) != 4 + 2 * ns:
@@ -360,10 +377,19 @@ def _decode_scan(data, pos, body, frame, tabs, restart, src, warn):
         ac_needed = ss != 0
     elif ss != 0 or se != 63 or ahl != 0:
         warn.add(_W_NOT_SEQUENTIAL)
-    dc_specs = [_table_spec(dc_tabs, 0, td, progressive) if dc_needed
-                else None for td, _ in table_ids]
-    ac_specs = [_table_spec(ac_tabs, 1, ta, progressive) if ac_needed
-                else None for _, ta in table_ids]
+    arith = None
+    if frame["arith"]:
+        # no Huffman tables: the selectors name conditioning tables 0-15
+        # (all valid), whose DAC values the C decoder gets per component
+        dc_specs = ac_specs = [None] * ns
+        arith = (ctypes.c_int32 * (5 * ns))(*[
+            x for td, ta in table_ids
+            for x in (td, ta, cond["L"][td], cond["U"][td], cond["K"][ta])])
+    else:
+        dc_specs = [_table_spec(dc_tabs, 0, td, progressive) if dc_needed
+                    else None for td, _ in table_ids]
+        ac_specs = [_table_spec(ac_tabs, 1, ta, progressive) if ac_needed
+                    else None for _, ta in table_ids]
 
     planes = [frame["planes"][ci] for ci in scan_comps]
     geom = (ctypes.c_int32 * (6 * ns))(*[
@@ -379,7 +405,7 @@ def _decode_scan(data, pos, body, frame, tabs, restart, src, warn):
     rc = _decode_scan_fn()(
         data, len(data), state, ns, geom, coefs, dcs, acs,
         frame["mcus_x"], frame["mcus_y"], int(progressive), ss, se, ah, al,
-        restart, warns, _WARN_CAP, ctypes.byref(n_warn))
+        restart, arith, warns, _WARN_CAP, ctypes.byref(n_warn))
     if rc:
         _fail(_C_ERRORS.get(rc, f"entropy decoder error {rc}"))
     for i in range(min(n_warn.value, _WARN_CAP)):
@@ -403,6 +429,9 @@ def _parse(data: bytes):
     warn = _Warnings()
     src = _Source(data, warn)
     qtabs, dc_tabs, ac_tabs = {}, {}, {}
+    # arithmetic conditioning per table (DAC), libjpeg's defaults at SOI
+    cond = {"L": [0] * _N_ARITH_TABLES, "U": [1] * _N_ARITH_TABLES,
+            "K": [5] * _N_ARITH_TABLES}
     restart = 0
     frame = None
     pos = 2
@@ -426,7 +455,9 @@ def _parse(data: bytes):
         length, pos = src.read(pos, 2)
         seg_len = _u16(length, 0)
         if seg_len < 2:
-            _fail(f"Bogus marker length in marker 0x{m:02x}")
+            if not (0xE0 <= m <= 0xEF or m in (0xDC, 0xFE)):
+                _fail(f"Bogus marker length in marker 0x{m:02x}")
+            seg_len = 2     # APPn, DNL and COM: skip_variable skips nothing
         body, pos = src.read(pos, seg_len - 2)
 
         if m == 0xDB:                               # DQT
@@ -459,32 +490,33 @@ def _parse(data: bytes):
             if len(body) != 2:
                 _fail("Bogus marker length")
             restart = _u16(body, 0)
-        elif m in (0xC0, 0xC1, 0xC2):               # Huffman SOF
+        elif m in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA):   # DCT SOF
             if frame is not None:
                 _fail("Invalid JPEG file structure: two SOF markers")
-            frame = _parse_sof(body, progressive=m == 0xC2)
-        elif m in (0xC6, 0xCA, 0xCE):
+            frame = _parse_sof(body, progressive=m in (0xC2, 0xCA),
+                               arith=m >= 0xC9)
+        elif m in _UNSUPPORTED_SOF:
             raise ValueError(
-                "progressive JPEG is not supported by this reader "
-                "(baseline and extended sequential Huffman only)")
-        elif m in (0xC3, 0xC5, 0xC7, 0xC8, 0xC9, 0xCB, 0xCD, 0xCF):
-            kind = "arithmetic-coded" if m >= 0xC9 else "lossless or hierarchical"
-            raise ValueError(
-                f"{kind} JPEG (SOF 0x{m:02x}) is not supported by this "
-                "reader (baseline and extended sequential Huffman only)")
+                f"{_UNSUPPORTED_SOF[m]} JPEG is not supported by this "
+                "reader, nor by libjpeg-turbo (sequential and progressive "
+                "DCT only)")
         elif m == 0xDA:                             # SOS
             if frame is None:
                 _fail("Invalid JPEG file structure: SOS before SOF")
             pos, marker = _decode_scan(data, pos, body, frame,
-                                       (qtabs, dc_tabs, ac_tabs), restart,
-                                       src, warn)
+                                       (qtabs, dc_tabs, ac_tabs, cond),
+                                       restart, src, warn)
         elif m == 0xCC:                             # DAC (get_dac)
             for i in range(0, len(body) - 1, 2):
                 index, val = body[i], body[i + 1]
-                if index >= 32:
+                if index >= 2 * _N_ARITH_TABLES:
                     _fail(f"Bogus DAC index {index}")
-                if index < 16 and (val & 15) > (val >> 4):
-                    _fail(f"Bogus DAC value 0x{val:x}")
+                if index >= _N_ARITH_TABLES:
+                    cond["K"][index - _N_ARITH_TABLES] = val
+                else:
+                    cond["L"][index], cond["U"][index] = val & 15, val >> 4
+                    if (val & 15) > (val >> 4):
+                        _fail(f"Bogus DAC value 0x{val:x}")
             if len(body) % 2:
                 _fail("Bogus marker length")
         elif m == 0xE0 and len(body) >= 14 and body[:5] == b"JFIF\0":

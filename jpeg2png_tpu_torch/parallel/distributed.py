@@ -19,13 +19,20 @@ never falls back to gloo.  Host-side effects that must happen once (PNG
 files, the CSV, the progress bar) are rank 0's (is_primary), the
 reference's single writer (jpeg2png.c:162-165).
 
-CLI: `--tpu-distributed` calls initialize() before any solve.
+CLI: `--tpu-distributed` calls initialize() before any solve and
+shutdown() before it returns.  A process leaves the group through
+shutdown() (a barrier, then destroy_process_group); initialize()
+registers it at exit, because a process that exits while its backend's
+threads still run aborts ("terminate called without an active
+exception") after its work is done.
 """
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
+import sys
 from typing import Optional
 
 import torch
@@ -44,7 +51,7 @@ def initialize(coordinator_address: Optional[str] = None,
 
     from jpeg2png_tpu_torch import resolve_device
 
-    if dist.is_available() and dist.is_initialized():
+    if is_joined():
         return dist.get_rank(), dist.get_world_size()
     env = os.environ
     coordinator_address = coordinator_address or env.get(
@@ -73,8 +80,37 @@ def initialize(coordinator_address: Optional[str] = None,
         world_size=num_processes, rank=process_id,
         timeout=datetime.timedelta(minutes=10))
     _state["device"] = dev
+    atexit.register(_shutdown_at_exit)      # shutdown is idempotent
     barrier()
     return process_id, num_processes
+
+
+def is_joined() -> bool:
+    """Whether this process is in a process group."""
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def shutdown(sync: bool = True) -> None:
+    """Leave the process group: a barrier (unless `sync` is false), so
+    that no process takes its backend down while another still talks to
+    it, then destroy_process_group.  Idempotent, and a no-op in a
+    process that joined no group."""
+    import torch.distributed as dist
+
+    if not is_joined():
+        return
+    if sync:
+        barrier()
+    dist.destroy_process_group()
+    _state.clear()
+
+
+def _shutdown_at_exit() -> None:
+    # after an unhandled exception the other processes may never reach a
+    # barrier: leave without one
+    shutdown(sync=getattr(sys, "last_exc", None) is None)
 
 
 def is_multi_process() -> bool:

@@ -66,14 +66,16 @@ _WORKER = textwrap.dedent("""
 """) % {"layout": LAYOUT}
 
 
-def _run_two_processes(tmp_path, script):
-    """`script` in two processes joined through the JPEG2PNG_* variables
-    on a free localhost port; fails unless both print 'rank i: ok'."""
+def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    worker = tmp_path / "worker.py"
-    worker.write_text(script)
+        return s.getsockname()[1]
+
+
+def _start_pair(worker, out_dir):
+    """Two processes of `worker` joined through the JPEG2PNG_* variables
+    on a free localhost port."""
+    port = _free_port()
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     procs = []
     for i in range(2):
@@ -82,12 +84,19 @@ def _run_two_processes(tmp_path, script):
             "JPEG2PNG_COORDINATOR": f"localhost:{port}",
             "JPEG2PNG_NUM_PROCESSES": "2",
             "JPEG2PNG_PROCESS_ID": str(i),
-            "JPEG2PNG_TEST_TMP": str(tmp_path),
+            "JPEG2PNG_TEST_TMP": str(out_dir),
             "PYTHONPATH": repo + os.pathsep + env.get("PYTHONPATH", ""),
         })
         procs.append(subprocess.Popen(
             [sys.executable, str(worker)], env=env, cwd=repo,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def _finish(pairs):
+    """Wait for every pair; fails unless every process exits with 0 after
+    printing 'rank i: ok'."""
+    procs = [p for pair in pairs for p in pair]
     outs = []
     try:
         for p in procs:
@@ -95,10 +104,19 @@ def _run_two_processes(tmp_path, script):
     except subprocess.TimeoutExpired:
         for p in procs:
             p.kill()
-        pytest.fail("the two-process solve hung:\n" + "\n".join(outs))
-    for i, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {i} failed:\n{outs[i]}"
-        assert f"rank {i}: ok" in outs[i]
+        pytest.fail("a multi-process run hung:\n" + "\n".join(outs))
+    for k, p in enumerate(procs):
+        i = k % 2
+        assert p.returncode == 0, f"rank {i} failed:\n{outs[k]}"
+        assert f"rank {i}: ok" in outs[k]
+
+
+def _run_two_processes(tmp_path, script):
+    """`script` in two processes joined through the JPEG2PNG_* variables
+    on a free localhost port; fails unless both print 'rank i: ok'."""
+    worker = tmp_path / "worker.py"
+    worker.write_text(script)
+    _finish([_start_pair(worker, tmp_path)])
 
 
 def test_torch_two_process_striped_solve(tmp_path, fixtures_dir):
@@ -206,3 +224,66 @@ def test_torch_two_process_striped_checkpoint(tmp_path, monkeypatch, body):
             np.testing.assert_array_equal(fd, fd_1.numpy())
             np.testing.assert_array_equal(m, m_1)
     assert not (tmp_path / "state.npz").exists()
+
+
+_EXIT_WORKER = textwrap.dedent("""
+    import torch
+    torch.set_num_threads(1)
+    from jpeg2png_tpu_torch.parallel import distributed
+
+    rank, world = distributed.initialize(device="cpu")
+    comm = distributed.DistributedComm()
+    x = torch.full((3, 8, 64), float(rank + 1))
+    for _ in range(3):
+        got = comm.shift_down([x])[0]
+        assert float(got.sum()) == (1.0 * 3 * 8 * 64 if rank == 1 else 0.0)
+        comm.shift_up([x])
+    assert float(comm.all_reduce([x])[0][0, 0, 0]) == 3.0
+    assert comm.counts == {"halo": 6, "all_reduce": 1}
+    print(f"rank {rank}: ok", flush=True)
+    # and out at once: the exit hook leaves the group
+""")
+
+
+def test_torch_gloo_pairs_leave_the_group_at_exit(tmp_path):
+    """Eight gloo pairs at once, each doing a few halo exchanges and an
+    all-reduce and then exiting at once: every process exits with 0.
+    Without shutdown() at exit, a process under this load could abort
+    after its work ("terminate called without an active exception",
+    returncode -6) while the backend's threads were still running."""
+    worker = tmp_path / "worker.py"
+    worker.write_text(_EXIT_WORKER)
+    _finish([_start_pair(worker, tmp_path) for _ in range(8)])
+
+
+_CLI_WORKER = textwrap.dedent("""
+    import os
+    import torch
+    torch.set_num_threads(1)
+    from jpeg2png_tpu_torch.cli import main
+    from jpeg2png_tpu_torch.parallel import distributed
+
+    out = os.environ["JPEG2PNG_TEST_TMP"]
+    rank = int(os.environ["JPEG2PNG_PROCESS_ID"])
+    assert not distributed.is_joined()
+    src = os.path.join("tests", "fixtures", "lineart64_q20_420_arith.jpg")
+    rc = main([src, "-o", os.path.join(out, f"cli{rank}.png"), "-i", "2",
+               "-q", "--tpu-stripes", "2", "--tpu-distributed", "--device",
+               "cpu"])
+    assert rc == 0, rc
+    # main joined the group itself, so it left it before returning
+    assert not distributed.is_joined()
+    distributed.shutdown()                  # idempotent outside a group
+    distributed.barrier()                   # a single process: a no-op
+    print(f"rank {rank}: ok", flush=True)
+""")
+
+
+def test_torch_cli_leaves_the_group_it_joined(tmp_path):
+    """cli.main --tpu-distributed, called outside a group, joins one and
+    leaves it before returning; rank 0 alone writes the PNG."""
+    worker = tmp_path / "worker.py"
+    worker.write_text(_CLI_WORKER)
+    _finish([_start_pair(worker, tmp_path)])
+    assert (tmp_path / "cli0.png").exists()
+    assert not (tmp_path / "cli1.png").exists()

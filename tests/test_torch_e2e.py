@@ -58,6 +58,28 @@ def test_torch_progressive_matches_reference(fixtures_dir):
     assert p > 45.0, f"PSNR vs reference output too low: {p:.2f} dB"
 
 
+def test_torch_arithmetic_matches_reference(fixtures_dir):
+    # an arithmetic-coded (SOF9) input: its coefficients are its Huffman
+    # original's, so the solve is the original's bit for bit, and meets
+    # the original's golden (the counterpart of tests/test_io.py's
+    # test_arithmetic_jpeg_e2e_solve)
+    cfg = SolverConfig(iterations=(5,) * 3)
+    img = read_jpeg(fixtures_dir / "lineart64_q20_420_arith.jpg")
+    result = smooth_decode(img, cfg, device="cpu")
+    orig = smooth_decode(read_jpeg(fixtures_dir / "lineart64_q20_420.jpg"),
+                         cfg, device="cpu")
+    np.testing.assert_array_equal(result.pixels, orig.pixels)
+    for a, b in zip(result.metrics_per_channel, orig.metrics_per_channel):
+        np.testing.assert_array_equal(a, b)
+    golden = load_golden_csv(fixtures_dir / "golden" /
+                             "lineart64_q20_420_i5.csv")
+    assert_metrics_close(result.metrics_per_channel[3][:2], golden[3][:2])
+    gold_png = np.asarray(
+        Image.open(fixtures_dir / "golden" / "lineart64_q20_420_i5.png"))
+    p = psnr(result.pixels, gold_png)
+    assert p > 45.0, f"PSNR vs reference output too low: {p:.2f} dB"
+
+
 def test_torch_16bit_output_matches_reference(fixtures_dir):
     from pngdec import decode_png
 

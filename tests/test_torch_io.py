@@ -17,11 +17,9 @@ from conftest import FIXTURES  # noqa: E402
 
 torch.set_num_threads(2)
 
+# every fixture: Huffman and arithmetic coding, sequential and progressive
 ALL_JPEGS = sorted(p.relative_to(FIXTURES).as_posix()
                    for p in FIXTURES.rglob("*.jpg"))
-# sequential and progressive Huffman streams decode; arithmetic coding the
-# reader refuses
-REFUSED = {"lineart64_q20_420_arith.jpg": "arithmetic-coded"}
 # progressive twins (tools/torch_make_progressive.c): the coefficients of
 # their sequential originals, in fixtures/ or fixtures/torch_serving/
 TWINS = sorted(p.name for p in (FIXTURES / "torch_progressive").glob("*.jpg"))
@@ -43,11 +41,20 @@ def assert_same_image(a, b):
 @pytest.mark.parametrize("name", ALL_JPEGS)
 def test_torch_reader_matches_libjpeg_reader(name):
     path = FIXTURES / name
-    if name in REFUSED:
-        with pytest.raises(ValueError, match=REFUSED[name]):
-            read_jpeg(path)
-        return
     assert_same_image(read_jpeg(path), read_jpeg_ref(path))
+
+
+# the SOF types libjpeg-turbo refuses: lossless, hierarchical, reserved
+@pytest.mark.parametrize("sof", [0xC3, 0xC5, 0xC6, 0xC7, 0xC8, 0xCB, 0xCD,
+                                 0xCE, 0xCF])
+def test_torch_reader_refuses_what_libjpeg_refuses(sof):
+    raw = (FIXTURES / "lineart64_q20_420.jpg").read_bytes()
+    i = raw.index(b"\xff\xc0")
+    patched = raw[:i + 1] + bytes([sof]) + raw[i + 2:]
+    with pytest.raises(ValueError, match=f"SOF{sof - 0xC0}.* not supported"):
+        read_jpeg(patched)
+    with pytest.raises(ValueError):
+        read_jpeg_ref(patched)
 
 
 def twin_original(name):

@@ -1,9 +1,9 @@
 """The port's JPEG reader on progressive (SOF2) input, against the JAX
 package's libjpeg reader: streams minted here by Pillow, truncated
-streams, hand-edited scan headers, and a byte-mutation fuzz run of the
-sequential fixtures and the progressive twins.  Every comparison is
-bit-exact on coefficients, quantization tables, `progressive`, warning
-texts and counts."""
+streams, hand-edited scan headers, and byte-mutation fuzz runs of the
+sequential fixtures and the progressive twins, and of the arithmetic
+twins.  Every comparison is bit-exact on coefficients, quantization
+tables, `progressive`, warning texts and counts."""
 
 import io
 import json
@@ -22,6 +22,7 @@ from test_torch_io import assert_same_image
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TWINS = FIXTURES / "torch_progressive"
+ARITH_TWINS = FIXTURES / "torch_arith"
 
 
 def both(raw):
@@ -203,22 +204,30 @@ def test_torch_reader_inconsistent_progression_warns_as_libjpeg():
     assert_same_image(got, ref)
 
 
-def fuzz(n: int, seed: int) -> dict:
+def fuzz(n: int, seed: int, coding: str = "huffman") -> dict:
     """Seeded byte mutations and truncations (tools/fuzz_reader.py's
-    mutate) of the sequential fixtures and the small progressive twins:
-    each mutant decodes to planes of libjpeg's shapes (libjpeg must
-    decode it too), or raises ValueError.  Returns the tally, with the
-    mutants whose decode equals libjpeg's in every respect."""
+    mutate) of the small Huffman fixtures (the sequential ones and the
+    progressive twins) or of the small arithmetic ones (the twins and
+    lineart64's): each mutant decodes to planes of libjpeg's shapes
+    (libjpeg must decode it too), or raises ValueError.  Returns the
+    tally, with the mutants whose decode equals libjpeg's in every
+    respect and those that warned of a bad arithmetic code."""
     sys.path.insert(0, str(REPO / "tools"))
     from fuzz_reader import mutate
 
-    corpus = [p for p in sorted(FIXTURES.glob("*.jpg"))
-              if "arith" not in p.name and "smoke" not in p.name]
-    corpus += [p for p in sorted(TWINS.glob("*.jpg"))
+    if coding == "huffman":
+        corpus = [p for p in sorted(FIXTURES.glob("*.jpg"))
+                  if "arith" not in p.name and "smoke" not in p.name]
+        twins = TWINS
+    else:
+        corpus = sorted(FIXTURES.glob("*_arith.jpg"))
+        twins = ARITH_TWINS
+    corpus += [p for p in sorted(twins.glob("*.jpg"))
                if p.stat().st_size < 100_000]
     datas = [p.read_bytes() for p in corpus]
     rng = np.random.default_rng(seed)
-    tally = {"decoded": 0, "refused": 0, "equal to libjpeg": 0}
+    tally = {"decoded": 0, "refused": 0, "equal to libjpeg": 0,
+             "bad arithmetic code": 0}
     for _ in range(n):
         mut = mutate(datas[int(rng.integers(0, len(datas)))], rng)
         try:
@@ -230,6 +239,8 @@ def fuzz(n: int, seed: int) -> dict:
         assert ([p.data.shape for p in img.planes]
                 == [p.data.shape for p in ref.planes])
         tally["decoded"] += 1
+        tally["bad arithmetic code"] += any(
+            "arithmetic" in w for w in img.warnings)
         try:
             assert_same_image(img, ref)
             tally["equal to libjpeg"] += 1
@@ -238,18 +249,35 @@ def fuzz(n: int, seed: int) -> dict:
     return tally
 
 
-def test_torch_reader_fuzz_smoke():
-    """400 mutants in a child process with its own time limit, so that a
-    crash in the C decoder fails this test instead of its worker."""
+def _fuzz_in_child(n: int, seed: int, coding: str) -> dict:
+    """fuzz() in a child process with its own time limit, so that a crash
+    in the C decoder fails the test instead of its worker."""
     code = ("import sys; sys.path[:0] = [%r, %r]; "
             "from test_torch_reader_progressive import fuzz; "
-            "import json; print(json.dumps(fuzz(400, 1234)))"
-            % (str(REPO / "tests"), str(REPO)))
+            "import json; print(json.dumps(fuzz(%d, %d, %r)))"
+            % (str(REPO / "tests"), str(REPO), n, seed, coding))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
     tally = json.loads(out.stdout.strip().splitlines()[-1])
-    assert tally["decoded"] + tally["refused"] == 400
+    assert tally["decoded"] + tally["refused"] == n
+    return tally
+
+
+def test_torch_reader_fuzz_smoke():
+    """400 mutants of the Huffman corpus: the port decodes as libjpeg."""
+    tally = _fuzz_in_child(400, 1234, "huffman")
     assert tally["decoded"] > 100, tally
-    # the corpus holds no arithmetic coding: the port decodes as libjpeg
+    assert tally["equal to libjpeg"] == tally["decoded"], tally
+    assert tally["bad arithmetic code"] == 0, tally
+
+
+def test_torch_reader_arith_fuzz():
+    """600 mutants of the arithmetic corpus: every one that decodes
+    equals libjpeg's decode.  Floors: more than half decode (about two
+    thirds did when this test was written) and at least 10 run into a
+    bad arithmetic code, so the decoder's error path is exercised."""
+    tally = _fuzz_in_child(600, 4321, "arith")
+    assert tally["decoded"] > 300, tally
+    assert tally["bad arithmetic code"] >= 10, tally
     assert tally["equal to libjpeg"] == tally["decoded"], tally
