@@ -102,8 +102,22 @@ non-zero exit and no result line):
      launch counts (K1 = K2 = 50) and their wall seconds; read times of
      the smoke JPEG, its Huffman progressive twin and its two arithmetic
      twins;
- 12. a JSON line of end-to-end numbers, one JSON line of kernel records,
-     then the device line last.
+ 12. the quality fixtures (tests/fixtures/quality/: tests/test_quality.py's
+     seven cases and photo512x384_q25_420_i1000) through every tier, each
+     with tests/test_quality.py's gates (PSNR against the ground truth >=
+     the reference's - 0.05 dB, > 0.5 dB above the plain decode, > 45 dB
+     against the reference's PNG), and six more i50 goldens (4:4:4,
+     4:1:1, 4:4:0, an odd size, 4:2:2) through every tier, > 45 dB;
+ 13. several workers on the one card: phase 7's serving run through
+     runner.decode_files_batched over devices=["cuda:0"] * 2 (one host
+     thread each), committed and every-class gates, every image equal to
+     phase 7's one-worker PNG, the launches the plan's, both workers used;
+     stripes.solve_striped_batched on the smoke JPEG and its blocks
+     reordered, 2 images x 2 bands on ["cuda:0"] * 4, each equal to its
+     own solve_striped over 2 bands (f32 body: K7 = K2 = 200; lite body:
+     K4 = K5 = 200), ms per iteration and peak memory;
+ 14. a JSON line of end-to-end numbers (with each phase's seconds), one
+     JSON line of kernel records, then the device line last.
 
 Imports nothing of JAX or of the JAX package jpeg2png_tpu.  Writes only
 under jpeg2png_tpu_torch/_build/chip_smoke/ in the checkout.
@@ -1980,10 +1994,8 @@ def _serve(label, card, files, images, refs):
     chunk, f32 or lite by their tier; dyn2 images: 50 K4 + K5; exact
     images: 50 K1 + K2), every PNG > 45 dB against the file's two-tier
     decode."""
-    import numpy as np
     import torch
 
-    from jpeg2png_tpu_torch import runner
     from jpeg2png_tpu_torch.cli import main as cli_main
 
     out_dir = OUT_DIR / f"serving_{label}"
@@ -1991,17 +2003,7 @@ def _serve(label, card, files, images, refs):
     outs = [out_dir / (pathlib.Path(f).stem + ".png") for f in files]
     for o in outs:
         o.unlink(missing_ok=True)
-    pweights = [0.001] * 3
-    plan = runner.plan_buckets(images, pweights)
-    want = {k: 0 for k in read_counts()}
-    images_by_tier = {t: 0 for t in TIERS}
-    for key, members in plan.items():
-        tier = runner.bucket_tier(key, pweights)
-        images_by_tier[tier] += len(members)
-        n = (runner.bucket_dispatches(len(members), 50, False)
-             if tier.startswith("mega") else 50 * len(members))
-        for k, v in tier_launches(tier, n).items():
-            want[k] += v
+    want, images_by_tier = _plan_launches(images)
     argv = [str(f) for f in files] + [a for o in outs for a in ("-o", str(o))]
     stats = {}
     zero_counts()
@@ -3053,6 +3055,213 @@ def phase_checkpoint(card: str):
     return out
 
 
+# ------------------------------------- quality fixtures, every tier
+
+# tests/test_quality.py's cases and photo512x384_q25_420_i1000, the
+# converged case tests/tpu_checks.py holds on the chip: (name, -i)
+QUALITY_CASES = (("lineart160x120_q20_420", 50), ("photo168x128_q30_420", 50),
+                 ("lineart160x120_q50_444", 50),
+                 ("lineart160x120_q20_420_i1000", 1000),
+                 ("photo512x384_q25_420", 50), ("photo512x384_q30_444", 50),
+                 ("lineart512x384_q25_422", 50),
+                 ("photo512x384_q25_420_i1000", 1000))
+# the i50 goldens phase 5 does not read (4:4:4, 4:1:1, 4:4:0, odd, 4:2:2)
+GOLDENS_MORE = ("art440x320_q85_444", "art128x96_q35_411", "art120x88_q40_440",
+                "lineart64_q50_444", "odd100x52_q25_420", "photo80_q30_422")
+
+
+def phase_quality(card: str):
+    """Every quality case through every tier (forced with tier=), with
+    tests/test_quality.py's gates: PSNR against the ground truth >= the
+    reference's - 0.05 dB, > 0.5 dB above the plain decode, > 45 dB
+    against the reference's PNG; then the six more i50 goldens through
+    every tier, > 45 dB.  Returns {case: {tier: PSNR vs ground truth}}
+    and {golden: {tier: PSNR}}."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from pngdec import decode_png
+
+    from jpeg2png_tpu_torch.io import read_jpeg
+    from jpeg2png_tpu_torch.pipeline import plain_decode, smooth_decode
+    from jpeg2png_tpu_torch.utils.config import SolverConfig
+
+    qdir = FIXTURES / "quality"
+    quality = {}
+    for name, iters in QUALITY_CASES:
+        gt = decode_png((qdir / f"{name}_gt.png").read_bytes())
+        ref = decode_png((qdir / f"{name}_ref_i{iters}.png").read_bytes())
+        img = read_jpeg(qdir / f"{name}.jpg")
+        psnr_ref = psnr(ref, gt)
+        psnr_plain = psnr(plain_decode(img, device=DEVICE), gt)
+        quality[name] = {"reference": psnr_ref, "plain": psnr_plain}
+        for tier in TIERS:
+            ours = smooth_decode(img, SolverConfig(iterations=(iters,) * 3),
+                                 device=DEVICE, tier=tier).pixels
+            p, p_ref = psnr(ours, gt), psnr(ours, ref)
+            quality[name][tier] = p
+            log(f"  quality {name} -i {iters} ({tier} tier): {p:.3f} dB vs "
+                f"ground truth (reference {psnr_ref:.3f}, plain "
+                f"{psnr_plain:.3f}), {p_ref:.2f} dB vs the reference's PNG")
+            require(p >= psnr_ref - 0.05,
+                    f"quality {name} ({tier}): {p:.3f} dB < reference "
+                    f"{psnr_ref:.3f} - 0.05")
+            require(p > psnr_plain + 0.5,
+                    f"quality {name} ({tier}): {p:.3f} dB not 0.5 dB above "
+                    f"the plain decode's {psnr_plain:.3f}")
+            require(p_ref > 45.0, f"quality {name} ({tier}): {p_ref:.2f} dB "
+                                  "vs the reference's PNG")
+    goldens = {}
+    for name in GOLDENS_MORE:
+        img = read_jpeg(FIXTURES / f"{name}.jpg")
+        gold = decode_png((FIXTURES / "golden" / f"{name}_i50.png")
+                          .read_bytes())
+        goldens[name] = {}
+        for tier in TIERS:
+            ours = smooth_decode(img, SolverConfig(), device=DEVICE,
+                                 tier=tier).pixels
+            p = goldens[name][tier] = psnr(ours, gold)
+            require(p > 45.0, f"golden {name} ({tier}): PSNR {p:.2f} dB")
+        log(f"  golden {name} i50, mega / mega-lite / two-lite / two: "
+            + " / ".join(f"{goldens[name][t]:.2f}" for t in TIERS) + " dB")
+    log(f"  quality fixtures and {len(GOLDENS_MORE)} goldens pass in every "
+        f"tier  [{card}]")
+    return quality, goldens
+
+
+# ------------------------------- several workers: serving, batched stripes
+
+def _plan_launches(images):
+    """The launches of a 50-iteration serving run of `images` under the
+    current gates, from the runner's bucket plan (dyn buckets: K3 per image
+    chunk, f32 or lite by their tier; dyn2 images: 50 K4 + K5; exact
+    images: 50 K1 + K2), and the images per tier."""
+    from jpeg2png_tpu_torch import runner
+
+    pweights = [0.001] * 3
+    want = {k: 0 for k in read_counts()}
+    images_by_tier = {t: 0 for t in TIERS}
+    for key, members in runner.plan_buckets(images, pweights).items():
+        tier = runner.bucket_tier(key, pweights)
+        images_by_tier[tier] += len(members)
+        n = (runner.bucket_dispatches(len(members), 50, False)
+             if tier.startswith("mega") else 50 * len(members))
+        for k, v in tier_launches(tier, n).items():
+            want[k] += v
+    return want, images_by_tier
+
+
+def _serve_workers(label, card, files, images, workers):
+    """runner.decode_files_batched on the corpus over `workers` (a device
+    list: one host thread each), against phase 7's one-worker PNGs of the
+    same gates: every image pixel-equal, the launches the plan's, every
+    worker used."""
+    import numpy as np
+    import torch
+
+    from jpeg2png_tpu_torch import runner
+    from jpeg2png_tpu_torch.utils.config import SolverConfig
+
+    want, _ = _plan_launches(images)
+    stats = {}
+    zero_counts()
+    t0 = time.perf_counter()
+    out = runner.decode_files_batched([str(f) for f in files], SolverConfig(),
+                                      stats=stats, devices=workers)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    _expect(launches, want, f"serving over {len(workers)} workers ({label})")
+    require(stats["cards"] == [str(torch.device(w)) for w in workers]
+            and min(stats["card_items"]) > 0,
+            f"serving ({label}): workers {stats['cards']} ran items "
+            f"{stats['card_items']}")
+    for f in files:
+        one = read_own_png(OUT_DIR / f"serving_{label}" / (f.stem + ".png"))
+        require(np.array_equal(out[str(f)], one),
+                f"serving over {len(workers)} workers ({label}) {f.name}: "
+                "pixels differ from the one-worker run")
+    log(f"  serving over {stats['cards']} ({label}): {len(files)} files in "
+        f"{wall_s:.3f} s ({len(files) / wall_s:.2f} files/s), solve "
+        f"{stats['solve_s']:.3f} s; items per worker {stats['card_items']}, "
+        f"busy s {[round(b, 3) for b in stats['card_busy_s']]}; every image "
+        f"equal to the one-worker run; launches {launches}  [{card}]")
+    return {"wall_s": wall_s, "files_per_s": len(files) / wall_s,
+            "solve_s": stats["solve_s"], "card_items": stats["card_items"],
+            "card_busy_s": stats["card_busy_s"], "launches": launches}
+
+
+def _reordered(datas):
+    """A second coefficient set of the same geometry: every plane's 8x8
+    blocks in reverse order along both axes."""
+    import numpy as np
+
+    return [np.ascontiguousarray(d[::-1, ::-1]) for d in datas]
+
+
+def phase_several_workers(card: str, files, images):
+    """Phase 7's serving over two workers on the one card
+    (devices=["cuda:0"] * 2), with the committed gates and the every-class
+    gates; then solve_striped_batched: the smoke JPEG and its blocks
+    reordered, 2 images x 2 bands on ["cuda:0"] * 4, each equal to its own
+    solve_striped over 2 bands, in both bodies."""
+    import numpy as np
+    import torch
+
+    from jpeg2png_tpu_torch.io import read_jpeg
+    from jpeg2png_tpu_torch.parallel import stripes
+    from jpeg2png_tpu_torch.parallel.mesh import batch_stripe_mesh, stripe_mesh
+
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    out = {"serving": {}}
+    t0 = time.perf_counter()
+    out["serving"]["default"] = _serve_workers("default", card, files,
+                                               images, [dev] * 2)
+    with gates(1280 * 1024, 1536 * 2048, 1 << 62):
+        out["serving"]["every class"] = _serve_workers(
+            "every-class", card, files, images, [dev] * 2)
+    log(f"  (serving over two workers: {time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    img = read_jpeg(SMOKE_JPEG)
+    datas, quants, samps = _args(img)
+    batch = [datas, _reordered(datas)]
+    it, nb, ns = 50, 2, 2
+    out["striped_batched"] = {}
+    for body, kernels in (("f32", ("fused_grad_striped",
+                                   "fused_project_multi")),
+                          ("lite", ("fused_grad_striped_lite",
+                                    "fused_project_multi_lite"))):
+        mesh = batch_stripe_mesh(nb, ns, [dev] * (nb * ns))
+        zero_counts()
+        (fd, m), ms, peak = _timed_solve(lambda: stripes.solve_striped_batched(
+            batch, [quants] * nb, samps, 0.3, [0.001] * 3, it, mesh,
+            body=body))
+        launches = read_counts()
+        _expect(launches, _launches(**{k: nb * ns * it for k in kernels}),
+                f"batched striping ({body} body)")
+        for g in mesh:
+            require(g.comm.counts == {"halo": 2 * it, "all_reduce": it},
+                    f"batched striping ({body}): collectives {g.comm.counts}")
+        for b in range(nb):
+            ref, m_ref = stripes.solve_striped(
+                batch[b], quants, samps, 0.3, [0.001] * 3, it,
+                stripe_mesh(ns, [dev] * ns), body=body)
+            require(torch.equal(fd[b], ref) and np.array_equal(m[b], m_ref),
+                    f"batched striping ({body}) image {b}: differs from its "
+                    "own striped solve")
+        del fd, ref
+        out["striped_batched"][body] = {"ms": ms, "ms_per_iteration": ms / it,
+                                        "peak_bytes": peak,
+                                        "launches": launches}
+        log(f"  solve_striped_batched ({body} body): {nb} images x {ns} bands "
+            f"of {img.width}x{img.height} on one card, {it} iterations: "
+            f"{ms:.1f} ms ({ms / it:.3f} ms per iteration), peak "
+            f"{peak / 2**30:.2f} GiB; launches {launches}; each image equal "
+            f"to its own solve_striped  [{card}]")
+    torch.cuda.empty_cache()
+    log(f"  (batched striping: {time.perf_counter() - t0:.1f} s)")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3065,42 +3274,59 @@ def main() -> int:
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
+    phase_s = {}
+
+    def phase(title, fn, *args):
+        """Run one phase under its title; log and keep its seconds."""
+        log(title)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[title.split(":")[0]] = dt = time.perf_counter() - t0
+        log(f"  ({title.split(':')[0]}: {dt:.1f} s)")
+        return out
+
     # every phase raises on failure: the traceback ends the run, exit 1
     card = phase_device()
-    log("phase 2: build")
-    build_s = phase_build()
+    build_s = phase("phase 2: build", phase_build)
     files = sorted(SERVING.glob("*.jpg"))
     require(len(files) == N_SERVING, f"serving corpus: {len(files)} files")
     t0 = time.perf_counter()
     images = [read_jpeg(f) for f in files]
     log(f"serving corpus read (one thread): {time.perf_counter() - t0:.3f} s")
-    log("phase 3-4: kernels against their plain versions")
-    errs = phase_kernels(images)
+    errs = phase("phase 3-4: kernels against their plain versions",
+                 phase_kernels, images)
     errs["fused_grad_striped"], errs["fused_project"] = striped_kernel_cases(
         np.random.default_rng(1))
-    log("phase 5: goldens, every tier")
-    converged, striple = phase_goldens()
-    log("phase 6: single image, 3072x2048 4:2:0 default flags, every tier")
-    records, single = phase_main_path(card, errs)
-    k3_points = phase_k3_points(card, images)
-    sweep = phase_tier_sweep(card)
-    log("phase 7: serving, cli --tpu-batch on the 48-file corpus")
-    serving = phase_serving(card, files, images)
+    converged, striple = phase("phase 5: goldens, every tier", phase_goldens)
+    records, single = phase(
+        "phase 6: single image, 3072x2048 4:2:0 default flags, every tier",
+        phase_main_path, card, errs)
+    k3_points = phase("phase 6 (K3 points)", phase_k3_points, card, images)
+    sweep = phase("phase 6 (tier sweep)", phase_tier_sweep, card)
+    serving = phase("phase 7: serving, cli --tpu-batch on the 48-file corpus",
+                    phase_serving, card, files, images)
     by_name = {r["name"]: r for r in records}
     by_name["fused_solve"]["launches"] = serving["default"][0]["fused_solve"]
     by_name["fused_solve_lite"]["launches"] = (
         serving["every class"][0]["fused_solve_lite"])
     single["solve_ms_per_iter"] = {
         t: sweep[3][f"{t}_ms_per_iter"] for t in TIERS}
-    log(f"phase 8: the row-striped path, {STRIPE_BANDS} bands on one card")
-    striped_records, striped = phase_striped(card, errs)
+    striped_records, striped = phase(
+        f"phase 8: the row-striped path, {STRIPE_BANDS} bands on one card",
+        phase_striped, card, errs)
     records += striped_records
-    log("phase 9: checkpoint / resume, every tier and both striped bodies")
-    ckpt = phase_checkpoint(card)
-    log("phase 10: the reader, progressive input and read times")
-    reader = phase_reader(card, files)
-    log("phase 11: the reader, arithmetic-coded input and read times")
-    reader_arith = phase_arith_reader(card)
+    ckpt = phase("phase 9: checkpoint / resume, every tier and both striped "
+                 "bodies", phase_checkpoint, card)
+    reader = phase("phase 10: the reader, progressive input and read times",
+                   phase_reader, card, files)
+    reader_arith = phase("phase 11: the reader, arithmetic-coded input and "
+                         "read times", phase_arith_reader, card)
+    quality, goldens_more = phase(
+        "phase 12: the quality fixtures and six more i50 goldens, every tier",
+        phase_quality, card)
+    several = phase("phase 13: several workers on the card: serving and "
+                    "batched striping", phase_several_workers, card, files,
+                    images)
     log(json.dumps({"card": card, "build_s": build_s, "single": single,
                     "golden_i1000_psnr": converged,
                     "golden_striple_psnr": striple, "k3_points": k3_points,
@@ -3108,13 +3334,14 @@ def main() -> int:
                     "serving": {k: v[1] for k, v in serving.items()},
                     "striped": striped, "checkpoint": ckpt,
                     "reader": reader, "reader_arith": reader_arith,
+                    "quality": quality, "goldens_i50_more": goldens_more,
+                    "several_workers": several, "phase_s": phase_s,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

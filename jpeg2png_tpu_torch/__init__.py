@@ -10,8 +10,9 @@ FISTA-accelerated projected subgradient method (reference:
 compute.c:406-465, README.md:99-116).  The hot loop runs on CUDA
 kernels written for Hopper (NVIDIA H100): two per iteration for large
 canvases, or one launch for every iteration of a chunk for small ones
-and for batches of mixed-size images (runner.py); giant images solve in
-row bands over several devices or processes (parallel/).
+and for batches of mixed-size images (runner.py, dealt over the cards);
+giant images solve in row bands over several devices or processes, and
+several at once over groups of devices (parallel/).
 
 Layout (each module has its counterpart in the JAX package
 jpeg2png_tpu/, which stays the reference; this package imports none of
@@ -27,7 +28,7 @@ it):
                checkpoint/resume of long solves (models/checkpoint.py)
     parallel/  the row-striped solve: band meshes, torch.distributed
                processes, the striped solver (cli --tpu-stripes)
-    runner.py  bucketed batch serving (cli --tpu-batch)
+    runner.py  bucketed batch serving (cli --tpu-batch), over every card
     utils/     config, CSV convergence logger, progress reporting
 """
 
@@ -48,3 +49,18 @@ def resolve_device(device="cuda"):
             "is available; pass device='cpu' (--device cpu) to run the "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def on_device(device):
+    """A context that makes `device` the calling thread's current CUDA
+    device (a no-op for the CPU).  The kernels launch on the current
+    device (the CUDA runtime's rule), on the stream of their tensors'
+    device, so every thread that launches on a card enters it."""
+    import contextlib
+
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

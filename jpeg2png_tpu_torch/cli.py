@@ -13,7 +13,8 @@ plus --device {cuda,cpu}: the solve runs on the CUDA card by default
 and fails without one; --device cpu runs the plain PyTorch path; and the
 JAX package's --tpu-* flags for the same modes:
   --tpu-batch        several inputs in joint mode are solved in mixed-size
-                     buckets through the whole-solve kernel (runner.py);
+                     buckets through the whole-solve kernel (runner.py),
+                     spread over every visible card (-t caps the cards);
   --tpu-stripes N    each image is solved in N row bands, one per CUDA
                      card (parallel/stripes.py; with -s each channel on
                      its own); N beyond the cards clamps to them with a
@@ -21,7 +22,10 @@ JAX package's --tpu-* flags for the same modes:
   --tpu-distributed  join a multi-process run (parallel/distributed.py:
                      JPEG2PNG_COORDINATOR, JPEG2PNG_NUM_PROCESSES,
                      JPEG2PNG_PROCESS_ID); the bands are then the
-                     processes, and rank 0 writes the outputs.
+                     processes, and rank 0 writes the outputs; with
+                     --tpu-batch each process serves every world-th file
+                     on its own card and writes its own PNGs, rank 0
+                     the CSV of its files.
 
     python -m jpeg2png_tpu_torch.cli picture.jpg
 """
@@ -84,7 +88,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-s", "--separate-components", action="store_true",
                    help="optimize components separately")
     p.add_argument("-t", "--threads", type=int, default=None,
-                   help="host worker threads for multi-file runs")
+                   help="max parallelism: host worker threads for "
+                        "multi-file IO, and with --tpu-batch also the "
+                        "max devices a bucket fans out over (the "
+                        "reference's -t bounds OpenMP solve threads; "
+                        "here solves are device dispatches, so -t "
+                        "bounds both pools)")
     p.add_argument("-1", "--16-bits-png", dest="png16", action="store_true",
                    help="output 16-bit PNG")
     p.add_argument("-c", "--csv-log", default=None, metavar="csv_log",
@@ -99,7 +108,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "each channel runs its own striped solve")
     p.add_argument("--tpu-batch", action="store_true",
                    help="solve several inputs batched: mixed sizes share "
-                        "bucketed whole-solve launches (joint mode only)")
+                        "bucketed whole-solve launches, dealt to every "
+                        "visible card (joint mode only)")
     p.add_argument("--tpu-distributed", action="store_true",
                    help="join a multi-process run (torch.distributed: "
                         "coordinator/rank from JPEG2PNG_COORDINATOR, "
@@ -185,7 +195,8 @@ def _run_batched(pairs, cfg, bits, logger, progress, threads, device,
 
     decode_files_batched(list(outmap), cfg, bits, io_threads=threads or 8,
                          logger=logger, errors=errors, progress=progress,
-                         on_pixels=on_pixels, stats=stats, device=device)
+                         on_pixels=on_pixels, stats=stats, device=device,
+                         data_parallel=threads)
     return errors
 
 
@@ -229,9 +240,6 @@ def main(argv=None, stats=None) -> int:
     # group stays joined
     joined_here = False
     if args.tpu_distributed:
-        if batched:
-            raise SystemExit("--tpu-batch does not run under "
-                             "--tpu-distributed in this package")
         joined_here = not distributed.is_joined()
         distributed.initialize(device=device)
     try:
@@ -249,7 +257,7 @@ def _decode_all(args, cfg, bits, outfiles, device, batched, stats) -> int:
     """Every input's decode (one after another, on threads, or batched);
     returns the exit code."""
     from jpeg2png_tpu_torch.parallel.distributed import (
-        is_multi_process, is_primary)
+        is_multi_process, is_primary, world_size)
     from jpeg2png_tpu_torch.pipeline import decode_file
     from jpeg2png_tpu_torch.utils.logger import ConvergenceLogger
     from jpeg2png_tpu_torch.utils.progress import ProgressBar
@@ -262,6 +270,12 @@ def _decode_all(args, cfg, bits, outfiles, device, batched, stats) -> int:
     logger = ConvergenceLogger(csv_f) if csv_f else None
     total = (nin * cfg.iterations[0] if not cfg.separate_components
              else nin * sum(cfg.iterations))
+    if batched:
+        # the runner solves each distinct input once, and in a
+        # multi-process run rank 0 only every world-th of them
+        # (runner.decode_files_batched): the bar counts rank 0's share
+        distinct = list(dict.fromkeys(args.inputs))
+        total = len(distinct[::world_size()]) * cfg.iterations[0]
     progress = None if (args.quiet or not primary) else ProgressBar(total)
 
     def run_one(pair):

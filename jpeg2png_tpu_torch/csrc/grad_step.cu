@@ -64,6 +64,8 @@
 // pgrad and halo arrays (every canvas is whole 8x8 blocks; the wrapper
 // checks).
 
+#include <atomic>
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -442,12 +444,16 @@ constexpr size_t smem_bytes() {
 // (occupancy x SMs), cached per device.
 template <int C, bool TGV>
 cudaError_t resident_blocks(int* slots) {
-  static int cached[MAX_DEVICES] = {};
+  // stored by whichever host thread launches first on a device, read by
+  // all (one thread per card in the serving runner): atomic; racing
+  // threads store the same value
+  static std::atomic<int> cached[MAX_DEVICES];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev < MAX_DEVICES && cached[dev] > 0) {
-    *slots = cached[dev];
+  const int known = dev < MAX_DEVICES ? cached[dev].load() : 0;
+  if (known > 0) {
+    *slots = known;
     return cudaSuccess;
   }
   constexpr size_t bytes = smem_bytes<C, TGV>();
@@ -464,7 +470,7 @@ cudaError_t resident_blocks(int* slots) {
       &per_sm, grad_kernel<C, TGV>, NT, bytes);
   if (err != cudaSuccess) return err;
   *slots = (per_sm > 0 ? per_sm : 1) * sms;
-  if (dev < MAX_DEVICES) cached[dev] = *slots;
+  if (dev < MAX_DEVICES) cached[dev].store(*slots);
   return cudaSuccess;
 }
 

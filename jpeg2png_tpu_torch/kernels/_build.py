@@ -63,6 +63,7 @@ HOST_LIBRARIES = {
 HOST_FLAGS = ["-std=c11", "-O2", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _handles: dict = {}
 # name -> compiler output of the last build in this process (ptxas prints
 # each kernel's registers, shared memory and spills)
@@ -151,6 +152,15 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _handles[name] = lib
         return lib
+
+
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add `n` to a kernel wrapper's `launches` count.  Wrappers launch
+    from several host threads at once (one per card in the serving
+    runner, one per image group in the batched striped solve), and
+    `+=` on an attribute is not atomic: one lock guards every count."""
+    with _count_lock:
+        wrapper.launches += int(n)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -300,7 +300,7 @@ def fused_grad(fdatas, fistas, pgrads, factor: float, weight: float,
         raise ValueError(f"fused_grad: true extent {HT}x{WT} outside {H}x{W}")
     grad, extrap, out = launch("fused_grad", f, fistas, pgrads, None, factor,
                                weight, 0, HT, WT)
-    fused_grad.launches += 1
+    _build.count_launch(fused_grad)
     return grad, extrap, out[:C], out[C], out[C + 1]
 
 

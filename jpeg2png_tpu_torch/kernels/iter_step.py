@@ -538,7 +538,7 @@ def fused_solve(f0s, fista0s, devq0s, factors, step_size, datas_i16, q_rs,
     out, launched = _launch(f0s, fista0s, devq0s, factors, step_size,
                             datas_i16, q_rs, p_alpha_sss, samps, weight,
                             extents, False)
-    fused_solve.launches += launched
+    _build.count_launch(fused_solve, launched)
     return out
 
 
@@ -557,7 +557,7 @@ def fused_solve_lite(f0s, d0s, devq0s, factors, step_size, datas_i16, q_rs,
                          f"{stack_channels(f0s).device}")
     out, launched = _launch(f0s, d0s, devq0s, factors, step_size, datas_i16,
                             q_rs, p_alpha_sss, samps, weight, extents, True)
-    fused_solve_lite.launches += launched
+    _build.count_launch(fused_solve_lite, launched)
     return out
 
 

@@ -211,7 +211,7 @@ def fused_project_multi(extraps, grads, scales, los, his, dqs, iqs,
              pgrad.data_ptr(), part.data_ptr(), dists.data_ptr(),
              ptrs, ints, pas, C, H, W, stream)
     _build.check(lib, err, "fused_project_multi")
-    fused_project_multi.launches += 1
+    _build.count_launch(fused_project_multi)
     it = iter(pgrad)
     pgrads = [next(it) if p != 0.0 else None for p in pa_sss]
     return fnew, pgrads, dists
@@ -296,7 +296,7 @@ def fused_project(extrap, grad, scale, lo, hi, dq, inv_q, p_alpha_ss,
              inv_q.data_ptr() if prob else None,
              p_alpha_ss / (sy * sx), sy, sx, H, W, stream)
     _build.check(lib, err, "fused_project")
-    fused_project.launches += 1
+    _build.count_launch(fused_project)
     return fnew, pgrad, dist[0]
 
 
@@ -442,7 +442,7 @@ def fused_project_multi_lite(fdatas, ds, grads, factor, scales, datas_i16,
              fnew.data_ptr(), dnew.data_ptr(), part.data_ptr(),
              dists.data_ptr(), ptrs, ints, float(factor), C, H, W, stream)
     _build.check(lib, err, "fused_project_multi_lite")
-    fused_project_multi_lite.launches += 1
+    _build.count_launch(fused_project_multi_lite)
     return fnew, dnew, devqs, dists
 
 

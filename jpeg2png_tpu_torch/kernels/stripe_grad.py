@@ -147,7 +147,7 @@ def fused_grad_striped(fdatas, fistas, pgrads, halos, factor, row0,
     grad, extrap, out = grad_step.launch(
         "fused_grad_striped", f, fistas, pgrads, halos, factor, weight,
         int(row0), int(h_true), int(w_true))
-    fused_grad_striped.launches += 1
+    _build.count_launch(fused_grad_striped)
     C = f.shape[0]
     return grad, extrap, out[:C], out[C], out[C + 1]
 
@@ -350,7 +350,7 @@ def fused_grad_striped_lite(fdatas, ds, devqs, halos, factor, row0,
              C, L, W, int(row0), HT, WT, float(factor), 1.0 / math.sqrt(C),
              tgv_alpha(C, weight), int(weight != 0.0), stream)
     _build.check(lib, err, "fused_grad_striped_lite")
-    fused_grad_striped_lite.launches += 1
+    _build.count_launch(fused_grad_striped_lite)
     return grad, out[:C], out[C], out[C + 1]
 
 

@@ -15,6 +15,10 @@ bands and all-reduces the per-band partial sums (parallel/stripes.py):
 Asking for more bands than there are devices raises: a "striped over 8"
 solve that quietly ran on fewer devices would hide both its speed and
 whether the striping is right (the JAX package's rule, mesh.py:20-33).
+
+batch_stripe_mesh gives several such meshes side by side, one image each
+(stripes.solve_striped_batched): the JAX package's 2-D ("batch", "y")
+mesh, in one process.
 """
 
 from __future__ import annotations
@@ -116,3 +120,31 @@ def stripe_mesh(n_devices: Optional[int] = None,
     if not devices:
         raise ValueError("a stripe mesh needs at least one band")
     return StripeMesh(len(devices), devices, 0, LocalComm(devices))
+
+
+def batch_stripe_mesh(n_batch: int, n_stripes: int,
+                      devices: Optional[Sequence] = None) -> tuple:
+    """`n_batch` stripe meshes of `n_stripes` bands each, over consecutive
+    devices (mesh b holds devices[b * n_stripes:(b + 1) * n_stripes]),
+    each with its own LocalComm: B images of one geometry, each striped
+    over its own group (jpeg2png_tpu/parallel/mesh.py:52-70).  `devices`
+    defaults to the visible CUDA cards and may repeat a device (["cuda:0"]
+    * 4: two groups of two bands on one card).  Fewer devices than
+    n_batch * n_stripes raise (never a smaller mesh).  One process only:
+    a batch of stripe groups across processes would need sub-groups of
+    the process group, which this package does not build."""
+    if distributed.is_multi_process():
+        raise ValueError("batch_stripe_mesh runs in one process; a "
+                         "multi-process batch x stripe mesh is not supported")
+    if n_batch < 1 or n_stripes < 1:
+        raise ValueError(f"a {n_batch}x{n_stripes} mesh")
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(available_devices("cuda"))]
+    need = n_batch * n_stripes
+    if len(devices) < need:
+        raise ValueError(f"need {need} devices for a {n_batch}x{n_stripes} "
+                         f"mesh, have {len(devices)}")
+    return tuple(stripe_mesh(n_stripes,
+                             devices[b * n_stripes:(b + 1) * n_stripes])
+                 for b in range(n_batch))

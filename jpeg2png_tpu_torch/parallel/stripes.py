@@ -2,9 +2,11 @@
 
 The counterpart of jpeg2png_tpu/parallel/stripes.py, the path for giant
 images (the fifth published configuration: a 100 MP image striped over
-N >= 2 devices with halo collectives).  Each band holds L consecutive rows
-of every channel; per iteration every band takes part in exactly THREE
-collectives (parallel/mesh.py, parallel/distributed.py):
+N >= 2 devices with halo collectives); solve_striped_batched solves
+several images of one geometry at once, each over its own group of bands.
+Each band holds L consecutive rows of every channel; per iteration every
+band takes part in exactly THREE collectives (parallel/mesh.py,
+parallel/distributed.py):
 
   * two halo exchanges, one stacked payload per direction: every channel's
     2 boundary rows of the iterate and of its FISTA companion (the lite
@@ -44,14 +46,14 @@ chunk to make the metric rows.
 
 from __future__ import annotations
 
-import contextlib
+import concurrent.futures
 import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from jpeg2png_tpu_torch import resolve_device
+from jpeg2png_tpu_torch import on_device, resolve_device
 from jpeg2png_tpu_torch.kernels import iter_step, stripe_grad
 from jpeg2png_tpu_torch.kernels.grad_step import (
     HALO_ROWS, MAX_CHANNELS, stack_channels)
@@ -105,14 +107,6 @@ def striped_carry_kind(geoms: Tuple[ChannelGeometry, ...], n: int) -> str:
             and stripe_grad.supports(len(geoms), L, W, samps)):
         return "lite"
     return "f32"
-
-
-def _on(device):
-    """Make a band's card the current one: the kernels launch on the
-    current device (the CUDA runtime's rule), their streams on the band's."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
 
 
 def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -237,7 +231,7 @@ class _Striped:
             above, below = self._exchange(fs, sides)
             grads = []
             for b in range(nb):
-                with _on(self.devices[b]):
+                with on_device(self.devices[b]):
                     grads.append(self._gradient(b, fs[b], sides[b], probs[b],
                                                 above[b], below[b], factor))
             totals = self.comm.all_reduce(
@@ -246,7 +240,7 @@ class _Striped:
             rows.append(totals[0])
             out = []
             for b in range(nb):
-                with _on(self.devices[b]):
+                with on_device(self.devices[b]):
                     out.append(self._project(b, fs[b], sides[b], grads[b][0],
                                              factor, self._scale(totals[b])))
             fs, sides, probs, dists = (list(x) for x in zip(*out))
@@ -395,3 +389,41 @@ def solve_striped(
         simd_compat_logging=simd_compat_logging, body=body,
         on_chunk=on_chunk, chunk=chunk)
     return fdata, metrics
+
+
+def solve_striped_batched(
+    datas: Sequence[Sequence[np.ndarray]],   # [B][C]
+    quants: Sequence[Sequence[np.ndarray]],  # [B][C]
+    samps: Sequence[Tuple[int, int]],
+    weight: float,
+    pweights: Sequence[float],
+    iterations: int,
+    mesh,
+    simd_compat_logging: bool = True,
+    body: Optional[str] = None,
+):
+    """B images of one geometry, image b striped over mesh[b]
+    (mesh.batch_stripe_mesh: B groups of bands), the groups solved at once
+    on one host thread each.  Each image's result is the one solve_striped
+    gives on its group alone, bit for bit.  body as for solve_striped.
+
+    Returns (fdata [B, C, H, W] on the first group's first device,
+    metrics [B, iterations, 4] numpy)."""
+    if len(datas) != len(mesh) or len(quants) != len(datas):
+        raise ValueError(f"batch size {len(datas)} != mesh batch size "
+                         f"{len(mesh)}")
+    geoms = [solver._geometry(d, samps) for d in datas]
+    if any(g != geoms[0] for g in geoms):
+        raise ValueError(f"images of different geometries {geoms}")
+
+    def one(b):
+        return solve_striped(datas[b], quants[b], samps, weight, pweights,
+                             iterations, mesh[b], simd_compat_logging, body)
+
+    with concurrent.futures.ThreadPoolExecutor(
+            len(mesh), thread_name_prefix="j2p-stripe-group") as pool:
+        futures = [pool.submit(one, b) for b in range(len(mesh))]
+        results = [f.result() for f in futures]
+    dev = mesh[0].devices[0]
+    return (torch.stack([fd.to(dev) for fd, _ in results]),
+            np.stack([m for _, m in results]))

@@ -24,15 +24,21 @@ canvas, sorts each image into one of three classes:
            shared bucket canvas (two_lite_bucket_for, solve_bucket_two);
   "exact"  the rest: one image at a time on the two-kernel tier.
 
-There is one CUDA device per process in this slice (dp_degree counts
-them for later slices).
+Every bucket's work items (a dyn bucket's chunks of up to 8 images, a
+dyn2 or exact image) are dealt to the cards, one host thread per card
+draining one queue of items across all buckets (dp_degree, -t caps the
+cards); a chunk is formed as on one card, so every image's result on N
+cards is its one-card result, bit for bit.  In a multi-process run each
+process serves the files i % world == rank on its own card.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import functools
 import math
+import threading
 import time
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -40,7 +46,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from jpeg2png_tpu_torch import resolve_device
+from jpeg2png_tpu_torch import on_device, resolve_device
 from jpeg2png_tpu_torch.io import JpegImage, read_jpeg, require_supported
 from jpeg2png_tpu_torch.kernels import iter_step, stripe_grad
 from jpeg2png_tpu_torch.kernels.iter_step import fused_solve, fused_solve_lite
@@ -52,6 +58,7 @@ from jpeg2png_tpu_torch.models.solver import (
     solve_joint, tier_rule)
 from jpeg2png_tpu_torch.ops.color import gray_packed, ycbcr_to_rgb_packed
 from jpeg2png_tpu_torch.ops.dct_raster import idct_raster
+from jpeg2png_tpu_torch.parallel import distributed
 from jpeg2png_tpu_torch.utils.config import SolverConfig
 
 CHUNK_IMAGES = iter_step.MAX_BATCH   # images per K3 launch
@@ -73,14 +80,133 @@ class BatchResult:
     metrics: np.ndarray            # [B, iterations, 4]
 
 
-def dp_degree(B: int, requested: Optional[int] = None) -> int:
-    """Data-parallel width for a B-image bucket: the CUDA devices to
-    spread it over (at most `requested`, at most B).  This slice solves
-    on one device; the count is here for the multi-card slice."""
-    n = max(1, torch.cuda.device_count())
-    if requested is not None:
-        n = min(n, requested)
-    return max(1, min(n, B))
+def _present(dev: torch.device) -> torch.device:
+    """`dev` itself, a CUDA device with its index; raises RuntimeError for
+    a CUDA device that is not there (no fall back to the CPU)."""
+    resolve_device(dev)
+    if dev.type != "cuda":
+        return dev
+    count = torch.cuda.device_count()
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if index >= count:
+        raise RuntimeError(f"{dev} is not present: this process sees "
+                           f"{count} CUDA device(s)")
+    return torch.device("cuda", index)
+
+
+def dp_degree(B: int, requested: Optional[int] = None,
+              devices: Optional[Sequence] = None,
+              device="cuda") -> List[torch.device]:
+    """The devices B work items fan out over, one host worker each:
+
+      * in a multi-process run, this process's own card only
+        (distributed.band_device(): process i on card i % count; the
+        files are split across the processes instead);
+      * else `devices` as given, which may repeat a device (["cuda:0"] *
+        2: two workers on one card; ["cpu"] * 4: four on the CPU), or
+        every visible CUDA card for device "cuda", or [device];
+      * at most `requested` (the CLI's -t) and at most B, at least one.
+
+    A CUDA device that is not there raises RuntimeError."""
+    if distributed.is_multi_process():
+        devs = [distributed.band_device()]
+    elif devices is not None:
+        devs = [torch.device(d) for d in devices]
+        if not devs:
+            raise ValueError("an empty device list")
+    else:
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            devs = [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        else:
+            devs = [dev]
+    devs = [_present(d) for d in devs]
+    n = len(devs) if requested is None else min(len(devs), int(requested))
+    return devs[:max(1, min(n, B))]
+
+
+def _run_on_cards(work, devices, stats: Optional[dict] = None) -> None:
+    """Run `work`, callables fn(device), on one host thread per entry of
+    `devices`: each thread takes the next item of one shared queue, in
+    order, inside its device's context (on_device: the kernels launch on
+    the calling thread's current device).  The first exception on any
+    thread stops every thread taking more and is raised here once all
+    have stopped.  `stats` receives the devices (cards), the items each
+    ran (card_items) and each one's seconds inside its items
+    (card_busy_s)."""
+    queue = list(reversed(work))
+    lock = threading.Lock()
+    failed: List[BaseException] = []
+    items = [0] * len(devices)
+    busy = [0.0] * len(devices)
+
+    def worker(k):
+        with on_device(devices[k]):
+            while True:
+                with lock:
+                    if failed or not queue:
+                        return
+                    fn = queue.pop()
+                t0 = time.perf_counter()
+                try:
+                    fn(devices[k])
+                except BaseException as e:
+                    with lock:
+                        failed.append(e)
+                    raise
+                finally:
+                    busy[k] += time.perf_counter() - t0
+                    items[k] += 1
+
+    with concurrent.futures.ThreadPoolExecutor(
+            len(devices), thread_name_prefix="j2p-card") as pool:
+        futures = [pool.submit(worker, k) for k in range(len(devices))]
+        concurrent.futures.wait(futures)
+    if failed:
+        raise failed[0]
+    if stats is not None:
+        stats["cards"] = [str(d) for d in devices]
+        stats["card_items"] = items
+        stats["card_busy_s"] = busy
+
+
+class _BucketSolve:
+    """One bucket's solve as work items (lists of member indices) that run
+    on any device.  Each item's metric rows land in `metrics`; its solved
+    canvases [n, C, HB, WB] go to finish(members, f) on the device that
+    solved them, or are kept and joined in member order by result()."""
+
+    def __init__(self, n_images: int, iterations: int, finish):
+        self.metrics = np.zeros((n_images, iterations, 4), np.float32)
+        self.finish = finish
+        self._kept: Dict[int, torch.Tensor] = {}
+
+    def items(self) -> List[List[int]]:
+        raise NotImplementedError
+
+    def solve(self, members: List[int], device) -> torch.Tensor:
+        raise NotImplementedError
+
+    def run(self, members: List[int], device) -> None:
+        f = self.solve(members, device)
+        if self.finish is not None:
+            self.finish(members, f)
+        else:
+            self._kept[members[0]] = f
+
+    def result(self, device) -> BatchResult:
+        if self.finish is not None:
+            return BatchResult(None, self.metrics)
+        return BatchResult(torch.cat([self._kept[k].to(device)
+                                      for k in sorted(self._kept)]),
+                           self.metrics)
+
+
+def _solve_on_cards(job: _BucketSolve, data_parallel, devices, device):
+    devs = dp_degree(len(job.items()), data_parallel, devices, device)
+    _run_on_cards([functools.partial(job.run, m) for m in job.items()], devs)
+    return job.result(devs[0])
 
 
 def _canvas(img: JpegImage) -> Tuple[int, int]:
@@ -265,6 +391,82 @@ def bucket_dispatches(n_images: int, iterations: int,
     return -(-n_images // CHUNK_IMAGES) * -(-iterations // chunk)
 
 
+class _CanvasSolve(_BucketSolve):
+    """The set-up the bucket-canvas classes (dyn, dyn2) share: the
+    objective's weights, each image staged into the bucket canvas with its
+    true extent and step size, the FISTA factors."""
+
+    def __init__(self, images, bucket, weight, pweights, iterations,
+                 simd_compat_logging, on_chunk, iter_chunk, finish):
+        super().__init__(len(images), iterations, finish)
+        self.samps = _samps(images[0])
+        C = len(self.samps)
+        self.pa, self.total_alpha = objective_alphas(float(weight),
+                                                     pweights, C)
+        self.pa_ss = [self.pa[c] * sy * sx
+                      for c, (sy, sx) in enumerate(self.samps)]
+        self.check_gate(C, *bucket)
+        self.staged, self.exts, self.steps = _stage_images(images, bucket,
+                                                           iterations)
+        self.factors, _ = iter_step.fista_factors(1.0, int(iterations))
+        self.iter_chunk = (_default_iter_chunk(iterations, on_chunk)
+                           if iter_chunk is None else iter_chunk)
+        self.bucket, self.weight, self.iterations = bucket, weight, iterations
+        self.simd, self.on_chunk = simd_compat_logging, on_chunk
+
+    def check_gate(self, C, HB, WB):
+        raise NotImplementedError
+
+
+class _DynSolve(_CanvasSolve):
+    """A dyn bucket (solve_bucket): work items are its chunks of up to
+    CHUNK_IMAGES images, formed as one device forms them (K3's plan, and
+    so the order of its partial sums, depends on the chunk's size)."""
+
+    def check_gate(self, C, HB, WB):
+        P = sum(1 for p in self.pa_ss if p != 0.0)
+        if not iter_step.supports(C, HB, WB, self.samps, P):
+            raise ValueError(f"bucket {HB}x{WB} samps={self.samps} is "
+                             "outside the whole-solve kernel's gate")
+        self.lite = tier_rule(C, HB, WB, self.samps, P) == "mega-lite"
+
+    def items(self):
+        B = len(self.staged)
+        return [list(range(i, min(i + CHUNK_IMAGES, B)))
+                for i in range(0, B, CHUNK_IMAGES)]
+
+    def solve(self, members, device):
+        side = torch.bfloat16 if self.lite else torch.float32
+        solve = fused_solve_lite if self.lite else fused_solve
+        f, dats, q_rs, ext, step = _upload_chunk(
+            [self.staged[m] for m in members], [self.exts[m] for m in members],
+            [self.steps[m] for m in members], self.samps, self.bucket,
+            device)
+        # the FISTA shadow: fista = f, or the lite difference d = 0
+        fi = torch.zeros_like(f, dtype=side) if self.lite else f
+        devqs = [torch.zeros_like(q_rs[c], dtype=side)
+                 for c in range(len(self.samps)) if self.pa_ss[c] != 0.0]
+        prob_prev = np.zeros((len(members),), np.float32)
+        done, iterations = 0, self.iterations
+        while done < iterations:
+            n = min(self.iter_chunk, iterations - done)
+            f, fi, devqs, partials = solve(
+                f, fi, devqs, self.factors[done:done + n], step, dats, q_rs,
+                self.pa_ss, self.samps, self.weight, extents=ext)
+            partials_np = partials.cpu().numpy()
+            for bi, m in enumerate(members):
+                # fresh start: prob row 0 is exactly 0 (compute.c:279-286);
+                # chunk boundaries carry the one-row prob shift
+                self.metrics[m, done:done + n], prob_prev[bi] = mega_metrics(
+                    partials_np[bi], prob_prev[bi], self.pa,
+                    self.total_alpha, self.simd)
+            done += n
+            if self.on_chunk is not None:
+                self.on_chunk(members, done,
+                              self.metrics[members, done - n:done])
+        return f
+
+
 def solve_bucket(
     images: Sequence[JpegImage],
     bucket: Tuple[int, int],
@@ -276,6 +478,8 @@ def solve_bucket(
     iter_chunk: Optional[int] = None,
     finish=None,
     device="cuda",
+    data_parallel: Optional[int] = None,
+    devices: Optional[Sequence] = None,
 ) -> BatchResult:
     """Solve mixed-size same-subsampling images through K3 in
     dynamic-extent mode: f32, or its lite mode on the lite state (bf16
@@ -291,66 +495,72 @@ def solve_bucket(
     `on_chunk(member_indices, done_iterations, metrics_chunk)` fires
     after each.
 
+    The image chunks are dealt to the devices of dp_degree(chunks,
+    data_parallel, devices, device), one host thread each, whole: every
+    image's result is the one a single device gives, bit for bit.
+    on_chunk and finish then run on those threads, several at once.
+
     `finish(member_indices, fdata_device)`, when given, receives each
-    image chunk's solved canvases [n, C, HB, WB] on the device and
-    BatchResult.fdata is None.  Otherwise fdata is [B, C, HB, WB] on the
-    device (crop with each image's height/width).
+    image chunk's solved canvases [n, C, HB, WB] on the device that solved
+    them, and BatchResult.fdata is None.  Otherwise fdata is [B, C, HB, WB]
+    on the first of those devices (crop with each image's height/width).
     """
-    device = resolve_device(device)
-    HB, WB = bucket
-    samps = _samps(images[0])
-    C = len(samps)
-    pa, total_alpha = objective_alphas(float(weight), pweights, C)
-    pa_ss = [pa[c] * sy * sx for c, (sy, sx) in enumerate(samps)]
-    P = sum(1 for p in pa_ss if p != 0.0)
-    if not iter_step.supports(C, HB, WB, samps, P):
-        raise ValueError(f"bucket {HB}x{WB} samps={samps} is outside the "
-                         "whole-solve kernel's gate")
-    lite = tier_rule(C, HB, WB, samps, P) == "mega-lite"
-    side = torch.bfloat16 if lite else torch.float32
-    solve = fused_solve_lite if lite else fused_solve
-    staged, exts, steps = _stage_images(images, bucket, iterations)
+    job = _DynSolve(images, bucket, weight, pweights, iterations,
+                    simd_compat_logging, on_chunk, iter_chunk, finish)
+    return _solve_on_cards(job, data_parallel, devices, device)
 
-    B = len(images)
-    factors_np, _ = iter_step.fista_factors(1.0, int(iterations))
-    if iter_chunk is None:
-        iter_chunk = _default_iter_chunk(iterations, on_chunk)
-    fdata_out = [] if finish is None else None
-    metrics_out = np.zeros((B, iterations, 4), np.float32)
 
-    for i in range(0, B, CHUNK_IMAGES):
-        members = list(range(i, min(i + CHUNK_IMAGES, B)))
+class _Dyn2Solve(_CanvasSolve):
+    """A dyn2 bucket (solve_bucket_two): one image per work item."""
+
+    def check_gate(self, C, HB, WB):
+        if not stripe_grad.supports(C, HB, WB, self.samps):
+            raise ValueError(f"bucket {HB}x{WB} samps={self.samps} is "
+                             "outside the lite kernels' gate")
+        self.prob_cs = [c for c in range(C) if self.pa_ss[c] != 0.0]
+        # partials rows [sumsq C, tv, tv2, dists C] -> mega_metrics' columns
+        self.cols = list(range(C + 2)) + [C + 2 + c for c in self.prob_cs]
+
+    def items(self):
+        return [[m] for m in range(len(self.staged))]
+
+    def solve(self, members, device):
+        (m,) = members
+        HB, WB = self.bucket
         f, dats, q_rs, ext, step = _upload_chunk(
-            [staged[m] for m in members], [exts[m] for m in members],
-            [steps[m] for m in members], samps, bucket, device)
-        # the FISTA shadow: fista = f, or the lite difference d = 0
-        fi = torch.zeros_like(f, dtype=side) if lite else f
-        devqs = [torch.zeros_like(q_rs[c], dtype=side) for c in range(C)
-                 if pa_ss[c] != 0.0]
-        prob_prev = np.zeros((len(members),), np.float32)
-        done = 0
+            [self.staged[m]], [self.exts[m]], [self.steps[m]], self.samps,
+            self.bucket, device)
+        f, ext, step = f[0], ext[0], step[0]
+        dats = [x[0] for x in dats]
+        q_rs = [x[0] for x in q_rs]
+        d = torch.zeros_like(f, dtype=torch.bfloat16)
+        devqs = [torch.zeros_like(q_rs[c], dtype=torch.bfloat16)
+                 for c in self.prob_cs]
+        prob_prev = np.float32(0.0)
+        done, iterations = 0, self.iterations
         while done < iterations:
-            n = min(iter_chunk, iterations - done)
-            f, fi, devqs, partials = solve(
-                f, fi, devqs, factors_np[done:done + n], step, dats, q_rs,
-                pa_ss, samps, weight, extents=ext)
-            partials_np = partials.cpu().numpy()
-            for bi, m in enumerate(members):
-                # fresh start: prob row 0 is exactly 0 (compute.c:279-286);
-                # chunk boundaries carry the one-row prob shift
-                metrics_out[m, done:done + n], prob_prev[bi] = mega_metrics(
-                    partials_np[bi], prob_prev[bi], pa, total_alpha,
-                    simd_compat_logging)
+            n = min(self.iter_chunk, iterations - done)
+            rows = []
+            for factor in self.factors[done:done + n]:
+                grads, sumsq, tv, tv2 = fused_grad_striped_lite(
+                    f, d, devqs, None, float(factor), 0, self.weight,
+                    self.samps, self.pa_ss, HB, HB, WB, extents=ext)
+                norms = torch.sqrt(sumsq)
+                scale = torch.where(norms == 0.0, 0.0, step / norms)
+                f, d, dq_out, dists = fused_project_multi_lite(
+                    f, d, grads, float(factor), scale, dats, q_rs,
+                    self.pa_ss, self.samps)
+                devqs = [x for x in dq_out if x is not None]
+                rows.append(torch.cat([sumsq, tv.reshape(1),
+                                       tv2.reshape(1), dists]))
+            # the chunk's one device -> host fetch
+            partials = torch.stack(rows).cpu().numpy()[:, self.cols]
+            self.metrics[m, done:done + n], prob_prev = mega_metrics(
+                partials, prob_prev, self.pa, self.total_alpha, self.simd)
             done += n
-            if on_chunk is not None:
-                on_chunk(members, done, metrics_out[members, done - n:done])
-        if finish is not None:
-            finish(members, f)
-        else:
-            fdata_out.append(f)
-    if finish is not None:
-        return BatchResult(None, metrics_out)
-    return BatchResult(torch.cat(fdata_out), metrics_out)
+            if self.on_chunk is not None:
+                self.on_chunk([m], done, self.metrics[[m], done - n:done])
+        return f[None]
 
 
 def solve_bucket_two(
@@ -364,74 +574,47 @@ def solve_bucket_two(
     iter_chunk: Optional[int] = None,
     finish=None,
     device="cuda",
+    data_parallel: Optional[int] = None,
+    devices: Optional[Sequence] = None,
 ) -> BatchResult:
     """solve_bucket for the dyn2 class (jpeg2png_tpu/runner.py:826 of the
-    JAX package): images of one two-lite bucket, one at a time on one
-    device, each padded into the bucket canvas with its true extent and
-    step size as device values, through K4 + K5 per iteration in
-    dynamic-extent mode (the two-lite tier's body).  The same contract as
-    solve_bucket: `on_chunk(member_indices, done_iterations,
-    metrics_chunk)` after each iteration chunk, `finish(member_indices,
-    fdata_device [1, C, HB, WB])` per image."""
-    device = resolve_device(device)
-    HB, WB = bucket
-    samps = _samps(images[0])
-    C = len(samps)
-    pa, total_alpha = objective_alphas(float(weight), pweights, C)
-    pa_ss = [pa[c] * sy * sx for c, (sy, sx) in enumerate(samps)]
-    prob_cs = [c for c in range(C) if pa_ss[c] != 0.0]
-    if not stripe_grad.supports(C, HB, WB, samps):
-        raise ValueError(f"bucket {HB}x{WB} samps={samps} is outside the "
-                         "lite kernels' gate")
-    staged, exts, steps = _stage_images(images, bucket, iterations)
-    factors_np, _ = iter_step.fista_factors(1.0, int(iterations))
-    if iter_chunk is None:
-        iter_chunk = _default_iter_chunk(iterations, on_chunk)
-    # partials rows [sumsq C, tv, tv2, dists C] -> mega_metrics' columns
-    cols = list(range(C + 2)) + [C + 2 + c for c in prob_cs]
-    fdata_out = [] if finish is None else None
-    metrics_out = np.zeros((len(images), iterations, 4), np.float32)
+    JAX package): images of one two-lite bucket, one at a time, each
+    padded into the bucket canvas with its true extent and step size as
+    device values, through K4 + K5 per iteration in dynamic-extent mode
+    (the two-lite tier's body).  The images are dealt to the devices as
+    solve_bucket deals its chunks.  The same contract as solve_bucket:
+    `on_chunk(member_indices, done_iterations, metrics_chunk)` after each
+    iteration chunk, `finish(member_indices, fdata_device [1, C, HB,
+    WB])` per image."""
+    job = _Dyn2Solve(images, bucket, weight, pweights, iterations,
+                     simd_compat_logging, on_chunk, iter_chunk, finish)
+    return _solve_on_cards(job, data_parallel, devices, device)
 
-    for m in range(len(images)):
-        f, dats, q_rs, ext, step = _upload_chunk(
-            [staged[m]], [exts[m]], [steps[m]], samps, bucket, device)
-        f, ext, step = f[0], ext[0], step[0]
-        dats = [x[0] for x in dats]
-        q_rs = [x[0] for x in q_rs]
-        d = torch.zeros_like(f, dtype=torch.bfloat16)
-        devqs = [torch.zeros_like(q_rs[c], dtype=torch.bfloat16)
-                 for c in prob_cs]
-        prob_prev = np.float32(0.0)
-        done = 0
-        while done < iterations:
-            n = min(iter_chunk, iterations - done)
-            rows = []
-            for factor in factors_np[done:done + n]:
-                grads, sumsq, tv, tv2 = fused_grad_striped_lite(
-                    f, d, devqs, None, float(factor), 0, weight, samps,
-                    pa_ss, HB, HB, WB, extents=ext)
-                norms = torch.sqrt(sumsq)
-                scale = torch.where(norms == 0.0, 0.0, step / norms)
-                f, d, dq_out, dists = fused_project_multi_lite(
-                    f, d, grads, float(factor), scale, dats, q_rs, pa_ss,
-                    samps)
-                devqs = [x for x in dq_out if x is not None]
-                rows.append(torch.cat([sumsq, tv.reshape(1),
-                                       tv2.reshape(1), dists]))
-            # the chunk's one device -> host fetch
-            partials = torch.stack(rows).cpu().numpy()[:, cols]
-            metrics_out[m, done:done + n], prob_prev = mega_metrics(
-                partials, prob_prev, pa, total_alpha, simd_compat_logging)
-            done += n
-            if on_chunk is not None:
-                on_chunk([m], done, metrics_out[[m], done - n:done])
-        if finish is not None:
-            finish([m], f[None])
-        else:
-            fdata_out.append(f[None])
-    if finish is not None:
-        return BatchResult(None, metrics_out)
-    return BatchResult(torch.cat(fdata_out), metrics_out)
+
+class _ExactSolve(_BucketSolve):
+    """The exact-geometry class (solve_batched): one image per work item,
+    on the two-kernel tier; on_chunk(members, iterations, metrics) fires
+    after each."""
+
+    def __init__(self, datas, quants, samps, weight, pweights, iterations,
+                 simd_compat_logging, on_chunk=None, finish=None):
+        super().__init__(len(datas), iterations, finish)
+        self.args = (datas, quants, samps, weight, pweights, iterations,
+                     simd_compat_logging)
+        self.on_chunk = on_chunk
+
+    def items(self):
+        return [[i] for i in range(len(self.args[0]))]
+
+    def solve(self, members, device):
+        (i,) = members
+        datas, quants, samps, weight, pweights, iterations, simd = self.args
+        fd, self.metrics[i] = solve_joint(datas[i], quants[i], samps, weight,
+                                          pweights, iterations, simd, device,
+                                          tier="two")
+        if self.on_chunk is not None:
+            self.on_chunk(members, iterations, self.metrics[members])
+        return fd[None]
 
 
 def solve_batched(
@@ -443,16 +626,16 @@ def solve_batched(
     iterations: int,
     simd_compat_logging: bool = True,
     device="cuda",
+    data_parallel: Optional[int] = None,
+    devices: Optional[Sequence] = None,
 ) -> BatchResult:
     """The exact-geometry class: B images of one geometry, solved one at
-    a time on the two-kernel tier (what the mega gate refuses)."""
-    fds, ms = [], []
-    for ds, qs in zip(datas, quants):
-        fd, m = solve_joint(ds, qs, samps, weight, pweights, iterations,
-                            simd_compat_logging, device, tier="two")
-        fds.append(fd)
-        ms.append(m)
-    return BatchResult(torch.stack(fds), np.stack(ms))
+    a time on the two-kernel tier (what the mega gate refuses), dealt to
+    the devices as solve_bucket deals its chunks.  fdata [B, C, H, W] on
+    the first device."""
+    job = _ExactSolve(datas, quants, samps, weight, pweights, iterations,
+                      simd_compat_logging)
+    return _solve_on_cards(job, data_parallel, devices, device)
 
 
 def _pixels(fd: torch.Tensor, img: JpegImage, bits: int) -> np.ndarray:
@@ -506,6 +689,13 @@ def bucket_tier(key: Tuple, pweights: Sequence[float]) -> str:
     return tier_rule(len(samps), key[1], key[2], samps, n_prob)
 
 
+def _item_cost(key: Tuple, img: JpegImage, n: int) -> int:
+    """A work item's size for the schedule: canvas pixels times images."""
+    if key[0] == "exact":
+        return n * img.height * img.width
+    return n * key[1] * key[2]
+
+
 def decode_files_batched(
     infiles: Sequence[str],
     cfg: SolverConfig,
@@ -517,9 +707,19 @@ def decode_files_batched(
     stats: Optional[dict] = None,
     on_pixels=None,
     device="cuda",
+    data_parallel: Optional[int] = None,
+    devices: Optional[Sequence] = None,
 ) -> Dict[str, np.ndarray]:
     """Read, bucket, batch-solve and colour-convert many files (joint
     mode only).  Returns {infile: pixels}.
+
+    The work items of every bucket (a dyn bucket's chunks of up to 8
+    images, a dyn2 or exact image) form one queue, largest first, that
+    one host thread per device drains (dp_degree(items, data_parallel,
+    devices, device)): each image's result is the one device's, bit for
+    bit.  In a multi-process run (parallel/distributed.py) each process
+    takes the files i % world == rank and solves them on its own card;
+    the returned dict, the callbacks and the stats cover those files.
 
     Error isolation: with `errors` a list, a file that fails to read (or
     a bucket that fails to solve) drops out with a message appended and
@@ -536,13 +736,22 @@ def decode_files_batched(
     (dyn, dyn2, exact), bucket_shapes ({"HxW": members} of the dyn and
     dyn2 buckets), bucket_sizes, bucket_tiers ({tier: images}),
     k3_dispatches and k3_lite_dispatches (the K3 launches the f32 and
-    the lite dyn buckets make), read_s (threaded JPEG reads), solve_s
-    (bucket solves including the device-side crop, colour and the pixel
-    fetch), on_pixels_s (seconds inside on_pixels, summed over threads)
-    and wall_s.
+    the lite dyn buckets make), read_s (threaded JPEG reads), cards (the
+    device of each worker), card_items and card_busy_s (the work items
+    each worker ran and its seconds inside them), solve_s (bucket solves
+    including the device-side crop, colour and the pixel fetch),
+    on_pixels_s (seconds inside on_pixels, summed over threads) and
+    wall_s.
     """
-    device = resolve_device(device)
+    if devices is None:
+        resolve_device(device)    # no card: RuntimeError before any read
     t_start = time.perf_counter()
+    world = distributed.world_size()
+    if world > 1:
+        # the JAX package's split (runner.py:202-209): batched serving
+        # needs no collectives, each process serves its own files
+        rank = distributed.rank()
+        infiles = [f for i, f in enumerate(infiles) if i % world == rank]
 
     def read_one(f):
         try:
@@ -587,11 +796,30 @@ def decode_files_batched(
 
     out: Dict[str, np.ndarray] = {}
     cb_seconds = [0.0]
+    lock = threading.Lock()
+    failed_buckets = set()
 
     def deliver(infile, pix):
         t0 = time.perf_counter()
         on_pixels(infile, pix)
         return time.perf_counter() - t0
+
+    def fail(b, members, e):
+        """Bucket b drops out: one error line per member, once."""
+        if errors is None:
+            raise e
+        with lock:
+            if b not in failed_buckets:
+                failed_buckets.add(b)
+                errors.extend(f"{infiles[i]}: {e}" for i in members)
+
+    def guarded(b, members, run, dev):
+        if b in failed_buckets:
+            return
+        try:
+            run(dev)
+        except (ValueError, OSError) as e:
+            fail(b, members, e)
 
     t_solve0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(io_threads) as cb_pool:
@@ -604,53 +832,54 @@ def decode_files_batched(
             else:
                 jobs.append(cb_pool.submit(deliver, infiles[i], pix))
 
-        for key, members in buckets.items():
+        work = []
+        for b, (key, members) in enumerate(buckets.items()):
             imgs = [images[i] for i in members]
             C = imgs[0].nchannel
             ch_id = 3 if C > 1 else 0
+
+            def on_chunk(mbs, done, metrics_chunk, members=members,
+                         ch_id=ch_id):
+                n = metrics_chunk.shape[1]
+                if logger is not None:
+                    for bi, m in enumerate(mbs):
+                        logger.log_metrics(infiles[members[m]], ch_id,
+                                           metrics_chunk[bi],
+                                           start_iteration=done - n)
+                if progress is not None:
+                    progress.increment(len(mbs) * n)
+
+            def finish(mbs, f_dev, members=members):
+                for bi, m in enumerate(mbs):
+                    emit(members[m], f_dev[bi])
+
+            args = (cfg.weights[0], list(cfg.pweights[:C]), iterations,
+                    cfg.simd_compat_logging)
             try:
-                if key[0] in ("dyn", "dyn2"):
-                    def on_chunk(mbs, done, metrics_chunk, members=members):
-                        n = metrics_chunk.shape[1]
-                        if logger is not None:
-                            for bi, m in enumerate(mbs):
-                                logger.log_metrics(
-                                    infiles[members[m]], ch_id,
-                                    metrics_chunk[bi],
-                                    start_iteration=done - n)
-                        if progress is not None:
-                            progress.increment(len(mbs) * n)
-
-                    def finish(mbs, f_dev, members=members):
-                        for bi, m in enumerate(mbs):
-                            emit(members[m], f_dev[bi])
-
-                    solve = solve_bucket if key[0] == "dyn" else solve_bucket_two
-                    solve(
-                        imgs, (key[1], key[2]), cfg.weights[0],
-                        list(cfg.pweights[:C]), iterations,
-                        cfg.simd_compat_logging,
-                        on_chunk=on_chunk if streamed else None,
-                        finish=finish, device=device)
-                else:
-                    res = solve_batched(
+                if key[0] == "exact":
+                    job = _ExactSolve(
                         [[p.data for p in im.planes] for im in imgs],
                         [[p.quant for p in im.planes] for im in imgs],
-                        _samps(imgs[0]), cfg.weights[0],
-                        list(cfg.pweights[:C]), iterations,
-                        cfg.simd_compat_logging, device)
-                    for bi, i in enumerate(members):
-                        if logger is not None:
-                            logger.log_metrics(infiles[i], ch_id,
-                                               res.metrics[bi])
-                        emit(i, res.fdata[bi])
-                    if progress is not None:
-                        progress.increment(len(members) * iterations)
+                        _samps(imgs[0]), *args,
+                        on_chunk=on_chunk if streamed else None,
+                        finish=finish)
+                else:
+                    cls = _DynSolve if key[0] == "dyn" else _Dyn2Solve
+                    job = cls(imgs, (key[1], key[2]), *args,
+                              on_chunk if streamed else None, None, finish)
             except (ValueError, OSError) as e:
-                if errors is None:
-                    raise
-                for i in members:
-                    errors.append(f"{infiles[i]}: {e}")
+                fail(b, members, e)
+                continue
+            for item in job.items():
+                work.append((_item_cost(key, imgs[item[0]], len(item)),
+                             functools.partial(
+                                 guarded, b, members,
+                                 functools.partial(job.run, item))))
+        # largest first: the last items to start are the short ones, so the
+        # workers finish close together
+        work.sort(key=lambda w: -w[0])
+        devs = dp_degree(len(work), data_parallel, devices, device)
+        _run_on_cards([fn for _, fn in work], devs, stats)
         solve_s = time.perf_counter() - t_solve0
         for job in jobs:
             cb_seconds[0] += job.result()   # surfaces callback exceptions
