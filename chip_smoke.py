@@ -116,7 +116,16 @@ non-zero exit and no result line):
      reordered, 2 images x 2 bands on ["cuda:0"] * 4, each equal to its
      own solve_striped over 2 bands (f32 body: K7 = K2 = 200; lite body:
      K4 = K5 = 200), ms per iteration and peak memory;
- 14. a JSON line of end-to-end numbers (with each phase's seconds), one
+ 14. the measurement layer (utils/profiling.py, timing.py, debug.py):
+     device_trace around a 50-iteration two-tier solve of the smoke JPEG,
+     trace_breakdown naming K1 and K2 with 50 launches each (the
+     counters') and idle >= 0, its per-iteration split printed;
+     marginal_rate(joint_timer) at photo512 (200 -> 600 iterations); the
+     build counter over a warm repeat of phase 7's serving run (0); under
+     fp_exceptions the default CLI decode traps nothing and a NaN planted
+     in K1's input raises FloatingPointError from the wrapper's check after
+     its launch; kernel_cost_table gives the bounds phases 6 and 8 print;
+ 15. a JSON line of end-to-end numbers (with each phase's seconds), one
      JSON line of kernel records, then the device line last.
 
 Imports nothing of JAX or of the JAX package jpeg2png_tpu.  Writes only
@@ -135,6 +144,14 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
+# the port's bounds (bytes and operations per kernel, H100 peaks): one
+# source for every bound this script and PERF.md give
+from jpeg2png_tpu_torch.utils.profiling import (  # noqa: E402
+    PEAK_BYTES, bound_k3, bound_ms, bytes_k2, kernel_cost_table)
+# the kernel wrappers' launch counters
+from jpeg2png_tpu_torch.utils.profiling import (  # noqa: E402
+    launch_counters as _counters, read_launch_counts as read_counts,
+    zero_launch_counts as zero_counts)
 FIXTURES = ROOT / "tests" / "fixtures"
 OUT_DIR = ROOT / "jpeg2png_tpu_torch" / "_build" / "chip_smoke"
 SMOKE_JPEG = FIXTURES / "torch_smoke_art3072x2048_q30_420.jpg"
@@ -145,17 +162,6 @@ MID_JPEGS = (SERVING / "img016_1280x960_q20_s2.jpg",
              SERVING / "img021_2048x1536_q75_s2.jpg")
 # the 8.0 MP point of the tier sweep
 BIG_JPEG = SERVING / "img023_3264x2448_q90_s2.jpg"
-
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, f32 flop/s
-# outside the tensor cores
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-# operations per pixel and channel of K1 (extrapolation 3, differences
-# 2, TV norm and gather 12, TGV2 differences, norm and 7-point gather
-# 43) and per coefficient of K2 (three 8x8 transform pairs: 3 * 2 * 16
-# flops) — counted from the kernels' formulas
-K1_OPS_PER_CHANNEL_PIXEL = 60
-K2_OPS_PER_COEF = 96 + 8
 
 GOLDENS = ("photo512_q10_420", "photo600x400_q20_420", "art440x320_q30_422")
 # tests/test_e2e.py's assert_metrics_close: (column, rtol, atol)
@@ -918,7 +924,7 @@ def lite_state(args):
 
 def k3_bounds(args, ext, lite):
     """(bound ms of the launch, streaming ms per iteration) of K3 on these
-    arguments: _bound_k3 per image, and the state through device memory
+    arguments: bound_k3 per image, and the state through device memory
     every iteration (32 B per pixel and channel in f32, 22 lite, plus 14 /
     10 B per coefficient)."""
     f = args[0]
@@ -926,8 +932,8 @@ def k3_bounds(args, ext, lite):
     H, W = f.shape[-2:]
     samps, prob = args[8], [p != 0.0 for p in args[7]]
     C = len(samps)
-    nb, ops = _bound_k3(C, H, W, samps, prob, len(args[3]), lite)
-    bound = max(nb * B / PEAK_BYTES, ops * B / PEAK_F32) * 1e3
+    nb, ops = bound_k3(C, H, W, samps, prob, len(args[3]), lite)
+    bound = bound_ms(nb * B, ops * B)[0]
     coefs = sum(H // sy * (W // sx) for sy, sx in samps)
     stream = B * ((22 if lite else 32) * C * H * W + (10 if lite else 14)
                   * coefs)
@@ -1452,26 +1458,6 @@ def gates(mega: int, mega_lite: int, two_lite: int):
             setattr(solver, n, v)
 
 
-def _counters():
-    from jpeg2png_tpu_torch.kernels import (grad_step, iter_step,
-                                            project_step, stripe_grad)
-
-    return (grad_step.fused_grad, project_step.fused_project_multi,
-            iter_step.fused_solve, iter_step.fused_solve_lite,
-            stripe_grad.fused_grad_striped_lite,
-            project_step.fused_project_multi_lite,
-            stripe_grad.fused_grad_striped, project_step.fused_project)
-
-
-def zero_counts() -> None:
-    for fn in _counters():
-        fn.launches = 0
-
-
-def read_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _counters()}
-
-
 def tier_launches(tier: str, n: int) -> dict:
     """The launch counts of `n` solver steps on `tier`: n iterations on
     the two-kernel tiers (one launch of each kernel per iteration), n
@@ -1584,14 +1570,6 @@ def phase_goldens():
     return converged, striple
 
 
-def _bytes_k1(C, P, H, W, halo=False):
-    """Bytes of one K1 / K7 launch, whatever the kernel's grid: f, fista
-    and the prob gradient in, grad and extrap out, the C + 2 sums out, and
-    for a band (K7) its four halo arrays [C, 2, W] in."""
-    return (4 * H * W * (2 * C + P) + 4 * H * W * 2 * C + 4 * (C + 2)
-            + (4 * 4 * C * 2 * W if halo else 0))
-
-
 def _grad_split(fn, a, reps=20):
     """Device ms per launch of the K1 / K7 wrapper's two kernels, the
     gradient kernel and the fixed-order reduction of its partial sums,
@@ -1628,65 +1606,12 @@ def _split_msg(name, split, card):
             f"{split.get('reduce_columns', 0.0):.4f} ms per launch  [{card}]")
 
 
-def _bytes_k2(C, P, H, W, samps, prob):
-    coef = sum(4 * (H // sy) * (W // sx) * (4 if p else 2)
-               for (sy, sx), p in zip(samps, prob))
-    return 4 * H * W * 2 * C + coef + 4 * H * W * (C + P)
-
-
-def _bound_k3(C, H, W, samps, prob, nsteps, lite=False):
-    """(bytes, operations) of one K3 launch: each input read once and
-    each output written once (f in and out; fista, or the lite mode's
-    bf16 d, in and out; int16 data and quant rasters in; devq in and out
-    per prob channel, f32 or bf16; factors; the partial rows), and
-    nsteps iterations of the two-kernel body's operations (K1 + K2, or
-    the lite mode's K4 + K5)."""
-    coefs = [(H // sy) * (W // sx) for sy, sx in samps]
-    side = 2 if lite else 4
-    nbytes = ((8 + 2 * side) * C * H * W + sum(6 * n for n in coefs)
-              + sum(2 * side * n for n, p in zip(coefs, prob) if p)
-              + 4 * nsteps + 4 * 8 * nsteps)
-    if lite:
-        per_iter = (_bound_k4(C, H, W, samps, prob)[1]
-                    + _bound_k5(C, H, W, samps, prob)[1])
-    else:
-        per_iter = (K1_OPS_PER_CHANNEL_PIXEL * C * H * W
-                    + K2_OPS_PER_COEF * sum(coefs))
-    return nbytes, nsteps * per_iter
-
-
-def _bound_k4(C, L, W, samps, prob):
-    """(bytes, operations) of one K4 launch: f (f32) and d (bf16) in, the
-    bf16 gradient out, per prob channel the bf16 devq in, the C + 2 sums
-    out; K1's stencil operations per pixel and channel plus two 8-term
-    transform passes (32 operations) per prob coefficient and the add."""
-    pc = sum((L // sy) * (W // sx) for (sy, sx), p in zip(samps, prob) if p)
-    nbytes = 8 * C * L * W + 2 * pc + 4 * (C + 2)
-    ops = (K1_OPS_PER_CHANNEL_PIXEL * C * L * W + 32 * pc
-           + 2 * L * W * sum(prob))
-    return nbytes, ops
-
-
-def _bound_k5(C, H, W, samps, prob):
-    """(bytes, operations) of one K5 launch: f (f32), d and g (bf16) in,
-    fnew (f32) and dnew (bf16) out per pixel and channel; int16 data and
-    f32 quant in and, per prob channel, bf16 devq out per coefficient;
-    the C distances out.  Operations: two 8x8 transform pairs (64) and
-    the box, clamp and devq (8) per coefficient, 6 per pixel and
-    channel (e, fmid, the reconstruction, dnew)."""
-    coefs = [(H // sy) * (W // sx) for sy, sx in samps]
-    nbytes = (14 * C * H * W + 6 * sum(coefs)
-              + 2 * sum(n for n, p in zip(coefs, prob) if p) + 4 * C)
-    return nbytes, 72 * sum(coefs) + 6 * C * H * W
-
-
 def _record(name, src, replaces, launches, err, ms, plain_ms, nbytes, ops):
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_F32 * 1e3
+    bound, by = bound_ms(nbytes, ops)
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by,
             # no single PyTorch call computes any of these fused functions
             "library_ms": None}
 
@@ -1906,20 +1831,12 @@ def phase_main_path(card: str, errs):
                          prob.step_size / torch.sqrt(lsumsq))
     k5_args = (lcarry[0], lcarry[1], lgrads, 0.5, lscale, prob.dats_c,
                prob.qs_c, prob.pa_sss, prob.samps)
-    C, P, prob_on = 3, 3, [True] * 3
-    bounds = {
-        "fused_grad": (_bytes_k1(C, P, H, W),
-                       K1_OPS_PER_CHANNEL_PIXEL * C * H * W),
-        "fused_project_multi": (
-            _bytes_k2(C, P, H, W, prob.samps, prob_on),
-            K2_OPS_PER_COEF * sum(H // sy * (W // sx)
-                                  for sy, sx in prob.samps)),
-        "fused_solve": _bound_k3(C, H, W, prob.samps, prob_on, 50),
-        "fused_solve_lite": _bound_k3(C, H, W, prob.samps, prob_on, 50,
-                                      lite=True),
-        "fused_grad_striped_lite": _bound_k4(C, H, W, prob.samps, prob_on),
-        "fused_project_multi_lite": _bound_k5(C, H, W, prob.samps, prob_on),
-    }
+    C = 3
+    costs = kernel_cost_table(C, H, W, prob.samps, nsteps=50)
+    bounds = {name: (costs[k]["bytes"], costs[k]["ops"]) for name, k in (
+        ("fused_grad", "K1"), ("fused_project_multi", "K2"),
+        ("fused_solve", "K3"), ("fused_solve_lite", "K3 lite"),
+        ("fused_grad_striped_lite", "K4"), ("fused_project_multi_lite", "K5"))}
     timed = {}
     for name, fn, plain, a, reps, plain_reps in (
             ("fused_grad", grad_step.fused_grad, grad_step.fused_grad_plain,
@@ -2805,17 +2722,13 @@ def phase_striped(card: str, errs):
     L, Wb = problem.L, problem.W
     k7_split = _grad_split(stripe_grad.fused_grad_striped, k7_args)
     log(_split_msg("fused_grad_striped", k7_split, card))
-    k2_bound = _bytes_k2(C, C, L, Wb, problem.samps, [True] * C)
+    k2_bound = bytes_k2(C, C, L, Wb, problem.samps, [True] * C)
     log(f"  fused_project_multi (K2) on the same band: "
         f"{timed['fused_project_multi'][0]:.4f} ms (bytes bound "
         f"{k2_bound / PEAK_BYTES * 1e3:.4f} ms)  [{card}]")
-    bounds = {
-        "fused_grad_striped": (
-            _bytes_k1(C, C, L, Wb, halo=True),
-            K1_OPS_PER_CHANNEL_PIXEL * C * L * Wb),
-        "fused_project": (_bytes_k2(1, 1, L, Wb, [(1, 1)], [True]),
-                          K2_OPS_PER_COEF * L * Wb),
-    }
+    costs = kernel_cost_table(C, H, W, problem.samps, band_rows=L)
+    bounds = {name: (costs[k]["bytes"], costs[k]["ops"]) for name, k in (
+        ("fused_grad_striped", "K7"), ("fused_project", "K6"))}
     records = [
         _record("fused_grad_striped", "jpeg2png_tpu_torch/csrc/grad_step.cu",
                 "jpeg2png_tpu/kernels/stripe_grad.py:317",
@@ -3057,58 +2970,43 @@ def phase_checkpoint(card: str):
 
 # ------------------------------------- quality fixtures, every tier
 
-# tests/test_quality.py's cases and photo512x384_q25_420_i1000, the
-# converged case tests/tpu_checks.py holds on the chip: (name, -i)
-QUALITY_CASES = (("lineart160x120_q20_420", 50), ("photo168x128_q30_420", 50),
-                 ("lineart160x120_q50_444", 50),
-                 ("lineart160x120_q20_420_i1000", 1000),
-                 ("photo512x384_q25_420", 50), ("photo512x384_q30_444", 50),
-                 ("lineart512x384_q25_422", 50),
-                 ("photo512x384_q25_420_i1000", 1000))
 # the i50 goldens phase 5 does not read (4:4:4, 4:1:1, 4:4:0, odd, 4:2:2)
 GOLDENS_MORE = ("art440x320_q85_444", "art128x96_q35_411", "art120x88_q40_440",
                 "lineart64_q50_444", "odd100x52_q25_420", "photo80_q30_422")
 
 
 def phase_quality(card: str):
-    """Every quality case through every tier (forced with tier=), with
-    tests/test_quality.py's gates: PSNR against the ground truth >= the
-    reference's - 0.05 dB, > 0.5 dB above the plain decode, > 45 dB
-    against the reference's PNG; then the six more i50 goldens through
-    every tier, > 45 dB.  Returns {case: {tier: PSNR vs ground truth}}
-    and {golden: {tier: PSNR}}."""
+    """Every quality case (tools/torch_quality_eval.py's CASES, the
+    converged photo512x384_q25_420_i1000 included) through every tier
+    (forced with tier=), with its GATES, tests/test_quality.py's: PSNR
+    against the ground truth >= the reference's - 0.05 dB, > 0.5 dB above
+    the plain decode, > 45 dB against the reference's PNG; then the six
+    more i50 goldens through every tier, > 45 dB.  Returns {case: {tier:
+    PSNR vs ground truth}} and {golden: {tier: PSNR}}."""
     sys.path.insert(0, str(ROOT / "tests"))
+    sys.path.insert(0, str(ROOT / "tools"))
     from pngdec import decode_png
+    from torch_quality_eval import CASES, evaluate, gate_failures
 
     from jpeg2png_tpu_torch.io import read_jpeg
-    from jpeg2png_tpu_torch.pipeline import plain_decode, smooth_decode
+    from jpeg2png_tpu_torch.pipeline import smooth_decode
     from jpeg2png_tpu_torch.utils.config import SolverConfig
 
-    qdir = FIXTURES / "quality"
     quality = {}
-    for name, iters in QUALITY_CASES:
-        gt = decode_png((qdir / f"{name}_gt.png").read_bytes())
-        ref = decode_png((qdir / f"{name}_ref_i{iters}.png").read_bytes())
-        img = read_jpeg(qdir / f"{name}.jpg")
-        psnr_ref = psnr(ref, gt)
-        psnr_plain = psnr(plain_decode(img, device=DEVICE), gt)
-        quality[name] = {"reference": psnr_ref, "plain": psnr_plain}
+    for name, iters, _ in CASES:
         for tier in TIERS:
-            ours = smooth_decode(img, SolverConfig(iterations=(iters,) * 3),
-                                 device=DEVICE, tier=tier).pixels
-            p, p_ref = psnr(ours, gt), psnr(ours, ref)
-            quality[name][tier] = p
+            row = evaluate(name, iters, DEVICE, tier)
+            quality.setdefault(name, {
+                "reference": row["psnr_reference_vs_gt"],
+                "plain": row["psnr_plain_vs_gt"]})
+            p = quality[name][tier] = row["psnr_ours_vs_gt"]
             log(f"  quality {name} -i {iters} ({tier} tier): {p:.3f} dB vs "
-                f"ground truth (reference {psnr_ref:.3f}, plain "
-                f"{psnr_plain:.3f}), {p_ref:.2f} dB vs the reference's PNG")
-            require(p >= psnr_ref - 0.05,
-                    f"quality {name} ({tier}): {p:.3f} dB < reference "
-                    f"{psnr_ref:.3f} - 0.05")
-            require(p > psnr_plain + 0.5,
-                    f"quality {name} ({tier}): {p:.3f} dB not 0.5 dB above "
-                    f"the plain decode's {psnr_plain:.3f}")
-            require(p_ref > 45.0, f"quality {name} ({tier}): {p_ref:.2f} dB "
-                                  "vs the reference's PNG")
+                f"ground truth (reference {row['psnr_reference_vs_gt']:.3f}, "
+                f"plain {row['psnr_plain_vs_gt']:.3f}), "
+                f"{row['psnr_ours_vs_reference']:.2f} dB vs the reference's "
+                "PNG")
+            missed = gate_failures(row)
+            require(not missed, f"quality {name} ({tier}): {missed}")
     goldens = {}
     for name in GOLDENS_MORE:
         img = read_jpeg(FIXTURES / f"{name}.jpg")
@@ -3262,6 +3160,129 @@ def phase_several_workers(card: str, files, images):
     return out
 
 
+# ------------------------------------------------ the measurement layer
+
+# the bounds (ms) phases 6 and 8 printed before their formulas moved into
+# utils/profiling.py: K1-K5 at 3072x2048 4:2:0 (K3 per 50-iteration
+# launch), K6 and K7 on the 12288x8192 problem's 2048-row bands
+PRINTED_BOUNDS = {"K1": 0.1126828, "K2": 0.1352193528358209,
+                  "K3": 1.5775591164179106, "K3 lite": 1.690241910447761,
+                  "K4": 0.05070726328358209, "K5": 0.10141451820895522,
+                  "K6": 0.24038996059701492, "K7": 0.45108331582089556}
+
+
+def phase_measurement(card: str, records, files):
+    """The measurement layer on the card: (a) device_trace around a
+    50-iteration two-tier solve of the smoke JPEG, trace_breakdown naming
+    K1 and K2 with 50 launches each (the wrappers' counters) and idle >= 0;
+    (b) marginal_rate(joint_timer) at photo512, 200 -> 600 iterations; (c)
+    the build counter over a warm repeat of phase 7's serving run reads 0;
+    (d) under fp_exceptions the default CLI decode raises nothing, and a
+    NaN planted in K1's input raises FloatingPointError from the kernel
+    wrapper's check after the launch (never from the plain version); (e)
+    kernel_cost_table gives the bounds phases 6 and 8 printed."""
+    import traceback
+
+    import torch
+
+    from jpeg2png_tpu_torch.cli import main as cli_main
+    from jpeg2png_tpu_torch.io import read_jpeg
+    from jpeg2png_tpu_torch.kernels import grad_step
+    from jpeg2png_tpu_torch.models import solver
+    from jpeg2png_tpu_torch.utils import profiling
+    from jpeg2png_tpu_torch.utils.debug import fp_exceptions
+    from jpeg2png_tpu_torch.utils.timing import (
+        BuildCounter, joint_timer, marginal_rate)
+
+    out = {}
+    # (a)
+    img = read_jpeg(SMOKE_JPEG)
+    args = _args(img) + (0.3, [0.001] * 3, 50)
+    solver.solve_joint(*args, device=DEVICE, tier="two")          # warm
+    zero_counts()
+    with profiling.device_trace(OUT_DIR / "trace_two_tier", DEVICE) as prof:
+        solver.solve_joint(*args, device=DEVICE, tier="two")
+    counts = read_counts()
+    _expect(counts, tier_launches("two", 50), "traced two-tier solve")
+    bd = profiling.trace_breakdown(prof, 50, counts)
+    traced = {k: round(r["launches"] * 50) for k, r in bd["kernels"].items()}
+    require(traced == {"K1": counts["fused_grad"],
+                       "K2": counts["fused_project_multi"]} == {
+                           "K1": 50, "K2": 50},
+            f"trace_breakdown launches {traced}, counters {counts}")
+    require(bd["idle_us"] >= 0 and min(bd["host_in_idle_us"].values()) >= 0,
+            f"negative idle in {bd}")
+    log(f"  traced two-tier solve, 3072x2048, 50 iterations: K1 = K2 = 50 "
+        f"launches in the trace and the counters  [{card}]")
+    for line in profiling.format_breakdown(bd):
+        log("    " + line)
+    out["two_tier_breakdown"] = bd
+    # (b)
+    p512 = read_jpeg(FIXTURES / "photo512_q10_420.jpg")
+    rate = marginal_rate(joint_timer(*_args(p512), 2, device=DEVICE),
+                         p512.height * p512.width / 1e6, 200, 600)
+    require(math.isfinite(rate) and rate > 0, f"marginal rate {rate}")
+    log(f"  photo512 marginal rate (200 -> 600 iterations, the rule's tier): "
+        f"{rate:.1f} MP*iter/s  [{card}]")
+    out["photo512_marginal_mp_iter_per_s"] = rate
+    # (c)
+    out_dir = OUT_DIR / "serving_warm"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    argv = [str(f) for f in files] + [
+        a for f in files for a in ("-o", str(out_dir / (f.stem + ".png")))]
+    with BuildCounter() as builds:
+        rc = cli_main(argv + ["--tpu-batch", "-q", "--device", DEVICE])
+        torch.cuda.synchronize()
+    require(rc == 0, f"warm serving repeat returned {rc}")
+    require(builds.count == 0, f"the warm serving repeat built "
+                               f"{builds.count} libraries")
+    log(f"  warm repeat of the serving run: {builds.count} library builds")
+    out["warm_serving_builds"] = builds.count
+    # (d)
+    with fp_exceptions():
+        rc = cli_main([str(SMOKE_JPEG), "-o", str(OUT_DIR / "fp_traps.png"),
+                       "-f", "-q", "--device", DEVICE])
+    require(rc == 0, f"the default decode under fp_exceptions returned {rc}")
+    _, _, carry = solver.solve_steps(*args, nsteps=3, device=DEVICE,
+                                     tier="two")
+    f_nan = carry[0].clone()
+    f_nan[1, 100, 200] = float("nan")
+    saved = grad_step.fused_grad.launches
+    try:
+        with fp_exceptions():
+            grad_step.fused_grad(f_nan, carry[1], list(carry[2]), 0.5, 0.3)
+        raise SmokeFailure("a NaN in K1's input raised nothing")
+    except FloatingPointError as e:
+        frames = [f.name for f in traceback.extract_tb(e.__traceback__)]
+        launched = grad_step.fused_grad.launches - saved
+    finally:
+        grad_step.fused_grad.launches = saved    # not a launch of the path
+    require(launched == 1 and frames[-2:] == ["fused_grad", "check_finite"]
+            and "fused_grad_plain" not in frames,
+            f"the NaN trap: launches {launched}, frames {frames}")
+    log("  fp_exceptions: the default decode traps nothing; a NaN in K1's "
+        "input raises FloatingPointError from fused_grad's check after its "
+        "launch")
+    # (e)
+    tables = (kernel_cost_table(3, img.height, img.width, _args(img)[2]),
+              kernel_cost_table(3, img.height * TILE, img.width * TILE,
+                                _args(img)[2], band_rows=img.height * TILE
+                                // STRIPE_BANDS))
+    for k, want in PRINTED_BOUNDS.items():
+        got = tables[k in ("K6", "K7")][k]["bound_ms"]
+        require(abs(got - want) <= 1e-12 * want,
+                f"kernel_cost_table {k}: {got} ms, printed {want}")
+    for r in records:
+        k = profiling.WRAPPERS[r["name"]]
+        require(r["bound_ms"] == tables[k in ("K6", "K7")][k]["bound_ms"],
+                f"{r['name']}: record bound {r['bound_ms']} is not the "
+                "table's")
+    log("  kernel_cost_table gives every bound phases 6 and 8 print:\n"
+        + "\n".join("    " + x for x in profiling.format_cost_table(
+            tables[0]).splitlines()))
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3327,6 +3348,8 @@ def main() -> int:
     several = phase("phase 13: several workers on the card: serving and "
                     "batched striping", phase_several_workers, card, files,
                     images)
+    measurement = phase("phase 14: the measurement layer", phase_measurement,
+                        card, records, files)
     log(json.dumps({"card": card, "build_s": build_s, "single": single,
                     "golden_i1000_psnr": converged,
                     "golden_striple_psnr": striple, "k3_points": k3_points,
@@ -3335,7 +3358,8 @@ def main() -> int:
                     "striped": striped, "checkpoint": ckpt,
                     "reader": reader, "reader_arith": reader_arith,
                     "quality": quality, "goldens_i50_more": goldens_more,
-                    "several_workers": several, "phase_s": phase_s,
+                    "several_workers": several,
+                    "measurement": measurement, "phase_s": phase_s,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

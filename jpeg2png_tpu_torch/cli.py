@@ -233,6 +233,9 @@ def main(argv=None, stats=None) -> int:
     # lazy imports so --help/--version don't pay for torch startup
     from jpeg2png_tpu_torch import resolve_device
     from jpeg2png_tpu_torch.parallel import distributed
+    from jpeg2png_tpu_torch.utils.compile_cache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     device = resolve_device(args.device)   # no card: RuntimeError, no fallback
     batched = args.tpu_batch and nin > 1 and not cfg.separate_components

@@ -11,7 +11,11 @@ the source and the flags: an unchanged tree never rebuilds, and a
 changed source never loads a stale library.  `build()` starts one
 compiler per library, all at once, and waits for them; each writes a
 temporary file that `os.replace` moves into place, so processes that
-build the same library at once are harmless.
+build the same library at once are harmless.  `builds` counts the
+libraries compiled in this process (utils/timing.py's BuildCounter: a
+warm pass must build nothing).  With JPEG2PNG_TPU_NO_COMPILE_CACHE set,
+the libraries build into a temporary directory of this process instead
+(utils/compile_cache.py).
 
 The CUDA toolkit is found through $CUDA_HOME, then /usr/local/cuda, then
 $PATH.  Nothing here runs when the package is imported: the CPU tests
@@ -30,9 +34,11 @@ import subprocess
 import threading
 import time
 
+from jpeg2png_tpu_torch.utils.compile_cache import cache_dir
+
 PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
-BUILD_DIR = PKG / "_build"
+BUILD_DIR = cache_dir()
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -68,6 +74,11 @@ _handles: dict = {}
 # name -> compiler output of the last build in this process (ptxas prints
 # each kernel's registers, shared memory and spills)
 build_log: dict = {}
+# libraries compiled in this process (under _count_lock)
+builds = 0
+# set by utils/debug.py: check_finite then checks every kernel wrapper's
+# outputs and each solver iteration's carry
+fp_traps = False
 
 
 def nvcc_path() -> str:
@@ -110,6 +121,7 @@ def build(names=None) -> float:
     that is not built yet, one compiler process each, all started
     together.  Returns the seconds spent; raises RuntimeError with the
     compiler output if any build fails."""
+    global builds
     names = ([*LIBRARIES, *HOST_LIBRARIES] if names is None
              else list(names))
     t0 = time.perf_counter()
@@ -137,6 +149,8 @@ def build(names=None) -> float:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, path)   # atomic: a concurrent build is harmless
+            with _count_lock:
+                builds += 1
     if failed:
         raise RuntimeError("native library build failed:\n"
                            + "\n".join(failed))
@@ -171,3 +185,30 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         fn.argtypes = [ctypes.c_int]
         raise RuntimeError(
             f"{what}: CUDA launch failed: {fn(err).decode()} ({err})")
+
+
+def check_finite(what: str, outputs, iteration=None):
+    """Return `outputs`; first, while utils/debug.py's fp_exceptions is on,
+    raise FloatingPointError if any tensor in them (nested lists and
+    tuples; None and host numbers are skipped) holds a NaN or an Inf,
+    naming `what` and the solver `iteration` (0-based) if given.  Off, it
+    reads one flag.  Kernel wrappers pass their results through it
+    (after a launch, or after the plain version on the CPU) and the solver
+    loops their carry, so a trap names the first kernel or iteration that
+    produced a non-finite value, not a temporary that torch.where discards
+    (a zero norm's step / 0).  On a card the check synchronises."""
+    if not fp_traps:
+        return outputs
+    import torch
+
+    stack = [outputs]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, (list, tuple)):
+            stack.extend(x)
+        elif isinstance(x, torch.Tensor) and not bool(torch.isfinite(x).all()):
+            at = "" if iteration is None else f", iteration {iteration}"
+            raise FloatingPointError(
+                f"{what}{at}: non-finite value in a {tuple(x.shape)} "
+                f"{x.dtype} output (fp_exceptions)")
+    return outputs

@@ -291,8 +291,8 @@ def fused_grad(fdatas, fistas, pgrads, factor: float, weight: float,
     """
     f = stack_channels(fdatas)
     if f.device.type == "cpu":
-        return fused_grad_plain(fdatas, fistas, pgrads, factor, weight,
-                                h_true, w_true)
+        return _build.check_finite("fused_grad", fused_grad_plain(
+            fdatas, fistas, pgrads, factor, weight, h_true, w_true))
     C, H, W = f.shape
     HT = H if h_true is None else int(h_true)
     WT = W if w_true is None else int(w_true)
@@ -301,7 +301,8 @@ def fused_grad(fdatas, fistas, pgrads, factor: float, weight: float,
     grad, extrap, out = launch("fused_grad", f, fistas, pgrads, None, factor,
                                weight, 0, HT, WT)
     _build.count_launch(fused_grad)
-    return grad, extrap, out[:C], out[C], out[C + 1]
+    return _build.check_finite(
+        "fused_grad", (grad, extrap, out[:C], out[C], out[C + 1]))
 
 
 fused_grad.launches = 0

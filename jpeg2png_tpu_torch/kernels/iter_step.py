@@ -524,9 +524,9 @@ def fused_solve(f0s, fista0s, devq0s, factors, step_size, datas_i16, q_rs,
         partials [B, nsteps, 8].
     """
     if stack_channels(f0s).device.type == "cpu":
-        return fused_solve_plain(f0s, fista0s, devq0s, factors, step_size,
-                                 datas_i16, q_rs, p_alpha_sss, samps,
-                                 weight, extents, lite)
+        return _build.check_finite("fused_solve", fused_solve_plain(
+            f0s, fista0s, devq0s, factors, step_size, datas_i16, q_rs,
+            p_alpha_sss, samps, weight, extents, lite))
     if stack_channels(f0s).device.type != "cuda":
         raise ValueError(
             f"fused_solve: unsupported device {stack_channels(f0s).device}")
@@ -539,7 +539,7 @@ def fused_solve(f0s, fista0s, devq0s, factors, step_size, datas_i16, q_rs,
                             datas_i16, q_rs, p_alpha_sss, samps, weight,
                             extents, False)
     _build.count_launch(fused_solve, launched)
-    return out
+    return _build.check_finite("fused_solve", out)
 
 
 def fused_solve_lite(f0s, d0s, devq0s, factors, step_size, datas_i16, q_rs,
@@ -549,16 +549,16 @@ def fused_solve_lite(f0s, d0s, devq0s, factors, step_size, datas_i16, q_rs,
     in place of fista and bfloat16 devq carries.  The solver's mega-lite
     tier and the dyn serving class carry this state across chunks."""
     if stack_channels(f0s).device.type == "cpu":
-        return fused_solve_lite_plain(f0s, d0s, devq0s, factors, step_size,
-                                      datas_i16, q_rs, p_alpha_sss, samps,
-                                      weight, extents)
+        return _build.check_finite("fused_solve_lite", fused_solve_lite_plain(
+            f0s, d0s, devq0s, factors, step_size, datas_i16, q_rs,
+            p_alpha_sss, samps, weight, extents))
     if stack_channels(f0s).device.type != "cuda":
         raise ValueError("fused_solve_lite: unsupported device "
                          f"{stack_channels(f0s).device}")
     out, launched = _launch(f0s, d0s, devq0s, factors, step_size, datas_i16,
                             q_rs, p_alpha_sss, samps, weight, extents, True)
     _build.count_launch(fused_solve_lite, launched)
-    return out
+    return _build.check_finite("fused_solve_lite", out)
 
 
 fused_solve.launches = 0

@@ -159,8 +159,10 @@ def fused_project_multi(extraps, grads, scales, los, his, dqs, iqs,
     """
     e = stack_channels(extraps)
     if e.device.type == "cpu":
-        return fused_project_multi_plain(extraps, grads, scales, los, his,
-                                         dqs, iqs, pa_sss, samps)
+        return _build.check_finite("fused_project_multi",
+                                   fused_project_multi_plain(
+                                       extraps, grads, scales, los, his, dqs,
+                                       iqs, pa_sss, samps))
     if e.device.type != "cuda":
         raise ValueError(f"fused_project_multi: unsupported device {e.device}")
     g = stack_channels(grads)
@@ -214,7 +216,7 @@ def fused_project_multi(extraps, grads, scales, los, his, dqs, iqs,
     _build.count_launch(fused_project_multi)
     it = iter(pgrad)
     pgrads = [next(it) if p != 0.0 else None for p in pa_sss]
-    return fnew, pgrads, dists
+    return _build.check_finite("fused_project_multi", (fnew, pgrads, dists))
 
 
 fused_project_multi.launches = 0
@@ -260,8 +262,8 @@ def fused_project(extrap, grad, scale, lo, hi, dq, inv_q, p_alpha_ss,
          the prob term is off)
     """
     if extrap.device.type == "cpu":
-        return fused_project_plain(extrap, grad, scale, lo, hi, dq, inv_q,
-                                   p_alpha_ss, sy, sx)
+        return _build.check_finite("fused_project", fused_project_plain(
+            extrap, grad, scale, lo, hi, dq, inv_q, p_alpha_ss, sy, sx))
     if extrap.device.type != "cuda":
         raise ValueError(f"fused_project: unsupported device {extrap.device}")
     H, W = extrap.shape
@@ -297,7 +299,7 @@ def fused_project(extrap, grad, scale, lo, hi, dq, inv_q, p_alpha_ss,
              p_alpha_ss / (sy * sx), sy, sx, H, W, stream)
     _build.check(lib, err, "fused_project")
     _build.count_launch(fused_project)
-    return fnew, pgrad, dist[0]
+    return _build.check_finite("fused_project", (fnew, pgrad, dist[0]))
 
 
 fused_project.launches = 0
@@ -385,9 +387,10 @@ def fused_project_multi_lite(fdatas, ds, grads, factor, scales, datas_i16,
     """
     f = stack_channels(fdatas)
     if f.device.type == "cpu":
-        return fused_project_multi_lite_plain(fdatas, ds, grads, factor,
-                                              scales, datas_i16, q_rs,
-                                              pa_sss, samps)
+        return _build.check_finite(
+            "fused_project_multi_lite", fused_project_multi_lite_plain(
+                fdatas, ds, grads, factor, scales, datas_i16, q_rs, pa_sss,
+                samps))
     if f.device.type != "cuda":
         raise ValueError(
             f"fused_project_multi_lite: unsupported device {f.device}")
@@ -443,7 +446,8 @@ def fused_project_multi_lite(fdatas, ds, grads, factor, scales, datas_i16,
              dists.data_ptr(), ptrs, ints, float(factor), C, H, W, stream)
     _build.check(lib, err, "fused_project_multi_lite")
     _build.count_launch(fused_project_multi_lite)
-    return fnew, dnew, devqs, dists
+    return _build.check_finite("fused_project_multi_lite",
+                               (fnew, dnew, devqs, dists))
 
 
 fused_project_multi_lite.launches = 0

@@ -142,14 +142,17 @@ def fused_grad_striped(fdatas, fistas, pgrads, halos, factor, row0,
     """
     f = stack_channels(fdatas)
     if f.device.type == "cpu":
-        return fused_grad_striped_plain(fdatas, fistas, pgrads, halos, factor,
-                                        row0, weight, h_true, w_true)
+        return _build.check_finite(
+            "fused_grad_striped", fused_grad_striped_plain(
+                fdatas, fistas, pgrads, halos, factor, row0, weight, h_true,
+                w_true))
     grad, extrap, out = grad_step.launch(
         "fused_grad_striped", f, fistas, pgrads, halos, factor, weight,
         int(row0), int(h_true), int(w_true))
     _build.count_launch(fused_grad_striped)
     C = f.shape[0]
-    return grad, extrap, out[:C], out[C], out[C + 1]
+    return _build.check_finite(
+        "fused_grad_striped", (grad, extrap, out[:C], out[C], out[C + 1]))
 
 
 fused_grad_striped.launches = 0
@@ -288,9 +291,10 @@ def fused_grad_striped_lite(fdatas, ds, devqs, halos, factor, row0,
     """
     f = stack_channels(fdatas)
     if f.device.type == "cpu":
-        return fused_grad_striped_lite_plain(
-            fdatas, ds, devqs, halos, factor, row0, weight, samps,
-            p_alpha_sss, h_pad, h_true, w_true, extents)
+        return _build.check_finite(
+            "fused_grad_striped_lite", fused_grad_striped_lite_plain(
+                fdatas, ds, devqs, halos, factor, row0, weight, samps,
+                p_alpha_sss, h_pad, h_true, w_true, extents))
     if f.device.type != "cuda":
         raise ValueError(
             f"fused_grad_striped_lite: unsupported device {f.device}")
@@ -351,7 +355,8 @@ def fused_grad_striped_lite(fdatas, ds, devqs, halos, factor, row0,
              tgv_alpha(C, weight), int(weight != 0.0), stream)
     _build.check(lib, err, "fused_grad_striped_lite")
     _build.count_launch(fused_grad_striped_lite)
-    return grad, out[:C], out[C], out[C + 1]
+    return _build.check_finite("fused_grad_striped_lite",
+                               (grad, out[:C], out[C], out[C + 1]))
 
 
 fused_grad_striped_lite.launches = 0

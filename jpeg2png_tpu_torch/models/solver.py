@@ -61,7 +61,7 @@ import numpy as np
 import torch
 
 from jpeg2png_tpu_torch import resolve_device
-from jpeg2png_tpu_torch.kernels import iter_step, stripe_grad
+from jpeg2png_tpu_torch.kernels import _build, iter_step, stripe_grad
 from jpeg2png_tpu_torch.kernels.grad_step import fused_grad, stack_channels
 from jpeg2png_tpu_torch.kernels.iter_step import fused_solve, fused_solve_lite
 from jpeg2png_tpu_torch.kernels.project_step import (
@@ -271,9 +271,11 @@ def _build_problem(datas, quants, samps, weight, pweights, iterations,
     dats_c, qs_c = [], []
     for d, q, g in zip(datas, quants, geoms):
         # coefficient (u,v) of block (by,bx) lives at (8by+u, 8bx+v)
-        q_r = torch.as_tensor(np.asarray(q, np.float32), device=device)
+        # numpy arrays, or tensors already on the device (utils/timing.py
+        # uploads once for its timed solves)
+        q_r = torch.as_tensor(q, dtype=torch.float32, device=device)
         q_r = q_r.tile(g.nby, g.nbx)
-        data_i16 = deblockify(torch.as_tensor(np.asarray(d), device=device))
+        data_i16 = deblockify(torch.as_tensor(d, device=device))
         data_r = data_i16.to(torch.float32)
         dq = data_r * q_r
         iq = 1.0 / q_r
@@ -386,6 +388,7 @@ def _run(prob: _Problem, carry, nsteps: int, tier: str):
         pg_list = [p for p in pgs if p is not None]
         fistas, fdatas = fdatas, fnews
         pgrads = stack_channels(pg_list) if pg_list else pgrads
+        _build.check_finite("two tier", (fdatas, pgrads), i)
     if not rows:
         return carry, np.zeros((0, 4), np.float32)
     # the chunk's one device -> host fetch
@@ -414,6 +417,7 @@ def _run_two_lite(prob: _Problem, carry, nsteps: int):
             prob.pa_sss, prob.samps)
         devqs = [d for d in dq_out if d is not None]
         rows.append(torch.cat([sumsq, tv.reshape(1), tv2.reshape(1), dists]))
+        _build.check_finite("two-lite tier", (fdatas, ds, devqs), i)
     metrics, dist_final = _metrics(prob, rows, prob_dist)
     return (fdatas, ds, tuple(devqs), dist_final, t_final), metrics
 
@@ -429,6 +433,7 @@ def _run_mega(prob: _Problem, carry, nsteps: int, lite: bool):
     fdatas, side, devqs, partials = solve(
         fdatas, side, list(devqs), factors, prob.step_size, prob.dats_c,
         prob.qs_c, prob.pa_sss, prob.samps, prob.weight)
+    _build.check_finite("mega tier", (fdatas, side, devqs), nsteps - 1)
     # the chunk's one device -> host fetch
     metrics, dist_final = mega_metrics(
         partials.cpu().numpy(), prob_dist, prob.p_alphas, prob.total_alpha,

@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from jpeg2png_tpu_torch import on_device, resolve_device
-from jpeg2png_tpu_torch.kernels import iter_step, stripe_grad
+from jpeg2png_tpu_torch.kernels import _build, iter_step, stripe_grad
 from jpeg2png_tpu_torch.kernels.grad_step import (
     HALO_ROWS, MAX_CHANNELS, stack_channels)
 from jpeg2png_tpu_torch.kernels.project_step import (
@@ -246,6 +246,9 @@ class _Striped:
             fs, sides, probs, dists = (list(x) for x in zip(*out))
             pds = [(d * w).sum().reshape(1)
                    for d, w in zip(dists, self.dist_w)]
+            _build.check_finite("striped solve",
+                                (fs, sides, probs, pds, totals, above, below),
+                                i)
         # the chunk's one device -> host fetch
         parts = torch.stack(rows).cpu().numpy()
         C = self.C

@@ -5,8 +5,8 @@ realistic corpus: many distinct pixel sizes, several quality levels (=
 distinct quant tables), mixed subsampling.  This module mints one
 deterministically (seeded numpy content, Pillow encoder); the same
 sizes, qualities and content as the JAX package's utils/corpus.py.
-Pillow is imported inside mint_corpus only: the machine that decodes
-the committed corpus needs none.
+Pillow is imported only when mint_corpus has a file to encode: the
+machine that decodes an existing corpus (the committed one) needs none.
 """
 
 from __future__ import annotations
@@ -72,8 +72,6 @@ def mint_corpus(outdir, n: int = 100, seed: int = 0,
     `sizes` entries are (w, h) or (w, h, PIL-subsampling-id); plain
     pairs default to 4:2:0.  Returns the file paths (existing files
     are reused, so repeated benchmark runs skip the encode)."""
-    from PIL import Image
-
     outdir = pathlib.Path(outdir)
     outdir.mkdir(parents=True, exist_ok=True)
     files = []
@@ -84,6 +82,8 @@ def mint_corpus(outdir, n: int = 100, seed: int = 0,
         q = QUALITIES[i % len(QUALITIES)]
         path = outdir / f"img{i:03d}_{w}x{h}_q{q}_s{sub}.jpg"
         if not path.exists():
+            from PIL import Image
+
             Image.fromarray(synth_image(w, h, seed * 100003 + i)).save(
                 path, "JPEG", quality=q, subsampling=sub)
         files.append(str(path))

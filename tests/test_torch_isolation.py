@@ -13,8 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((REPO / "jpeg2png_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "jpeg2png_tpu_torch").rglob("*.py")) + sorted(
+    (REPO / "tools").glob("torch_*.py")) + [REPO / "chip_smoke.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -46,6 +46,14 @@ def test_torch_port_import_loads_no_jax():
         "import jpeg2png_tpu_torch.parallel.stripes\n"
         "import jpeg2png_tpu_torch.parallel.distributed\n"
         "import jpeg2png_tpu_torch.parallel.mesh\n"
+        "import jpeg2png_tpu_torch.utils.profiling\n"
+        "import jpeg2png_tpu_torch.utils.timing\n"
+        "import jpeg2png_tpu_torch.utils.debug\n"
+        "import jpeg2png_tpu_torch.utils.compile_cache\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import torch_bench, torch_bench_batch, torch_bench_tiers\n"
+        "import torch_fuzz_reader, torch_measure_halo_rt\n"
+        "import torch_profile_solve, torch_quality_eval\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'jpeg2png_tpu'))\n"
         "print(','.join(bad))\n")

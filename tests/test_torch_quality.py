@@ -9,10 +9,16 @@ the JAX package to three gates there, and the port meets the same ones:
   2. it beats the plain (blocky) decode by more than 0.5 dB;
   3. > 45 dB against the reference's own PNG.
 
+The cases and the gates are tools/torch_quality_eval.py's CASES and
+gate_failures, which the tool and chip_smoke.py apply too.
+
 The i50 goldens below (4:4:4, 4:1:1, 4:4:0, an odd size and 4:2:2) are
 the reference binary's -i 50 outputs; the port's decode must reach
 > 45 dB against each, the gate of tests/test_e2e.py.
 """
+
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -22,24 +28,19 @@ torch = pytest.importorskip("torch")
 from PIL import Image  # noqa: E402
 
 from jpeg2png_tpu_torch.io import read_jpeg  # noqa: E402
-from jpeg2png_tpu_torch.pipeline import plain_decode, smooth_decode  # noqa: E402
+from jpeg2png_tpu_torch.pipeline import smooth_decode  # noqa: E402
 from jpeg2png_tpu_torch.utils.config import SolverConfig  # noqa: E402
 from test_quality import psnr  # noqa: E402
 
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "tools"))
+import torch_quality_eval  # noqa: E402
+
 torch.set_num_threads(2)
 
-# tests/test_quality.py's CPU cases; photo512x384_q25_420_i1000 runs on
-# the card (chip_smoke.py), as tests/tpu_checks.py runs it for the JAX
-# package
-QUALITY_CASES = [
-    ("lineart160x120_q20_420", 50),
-    ("photo168x128_q30_420", 50),
-    ("lineart160x120_q50_444", 50),
-    ("lineart160x120_q20_420_i1000", 1000),
-    ("photo512x384_q25_420", 50),
-    ("photo512x384_q30_444", 50),
-    ("lineart512x384_q25_422", 50),
-]
+# the tool's CPU cases; photo512x384_q25_420_i1000 runs on the card
+# (chip_smoke.py), as tests/tpu_checks.py runs it for the JAX package
+QUALITY_CASES = [(name, iters) for name, iters, cpu
+                 in torch_quality_eval.CASES if cpu]
 
 # the i50 goldens no earlier port test reads
 GOLDENS_I50 = ["art440x320_q85_444", "art128x96_q35_411",
@@ -48,21 +49,9 @@ GOLDENS_I50 = ["art440x320_q85_444", "art128x96_q35_411",
 
 
 @pytest.mark.parametrize("name,iters", QUALITY_CASES)
-def test_torch_psnr_vs_ground_truth_beats_reference(fixtures_dir, name,
-                                                    iters):
-    qdir = fixtures_dir / "quality"
-    gt = np.asarray(Image.open(qdir / f"{name}_gt.png").convert("RGB"))
-    ref = np.asarray(
-        Image.open(qdir / f"{name}_ref_i{iters}.png").convert("RGB"))
-    img = read_jpeg(qdir / f"{name}.jpg")
-    ours = smooth_decode(img, SolverConfig(iterations=(iters,) * 3),
-                         device="cpu").pixels
-    plain = plain_decode(img, device="cpu")
-
-    psnr_ref, psnr_ours = psnr(ref, gt), psnr(ours, gt)
-    assert psnr_ours >= psnr_ref - 0.05, (psnr_ours, psnr_ref)
-    assert psnr_ours > psnr(plain, gt) + 0.5, (psnr_ours, psnr(plain, gt))
-    assert psnr(ours, ref) > 45.0, psnr(ours, ref)
+def test_torch_psnr_vs_ground_truth_beats_reference(name, iters):
+    row = torch_quality_eval.evaluate(name, iters, device="cpu")
+    assert not torch_quality_eval.gate_failures(row), row
 
 
 @pytest.mark.parametrize("name", GOLDENS_I50)
