@@ -125,7 +125,16 @@ non-zero exit and no result line):
      fp_exceptions the default CLI decode traps nothing and a NaN planted
      in K1's input raises FloatingPointError from the wrapper's check after
      its launch; kernel_cost_table gives the bounds phases 6 and 8 print;
- 15. a JSON line of end-to-end numbers (with each phase's seconds), one
+ 15. the multi-process meshes (parallel/distributed.py, mesh.py) on the
+     one card: a one-process NCCL group whose process names four devices,
+     all cuda:0; stripe_mesh(4) through the global band layout and
+     DistributedComm (the band-order all-gather sum, bit-equal to
+     LocalComm's on random vectors) and batch_stripe_mesh(2, 2) through
+     the global layout, each solve of the smoke JPEG torch.equal to the
+     same solve outside the group (f32 body: K7 = K2 = 200; lite body: K4
+     = K5 = 200); with two cards or more, two NCCL processes of two bands
+     each on their own card, bit-equal to the one-process 4-band solve;
+ 16. a JSON line of end-to-end numbers (with each phase's seconds), one
      JSON line of kernel records, then the device line last.
 
 Imports nothing of JAX or of the JAX package jpeg2png_tpu.  Writes only
@@ -138,6 +147,7 @@ import contextlib
 import csv
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -3283,9 +3293,206 @@ def phase_measurement(card: str, records, files):
     return out
 
 
+# ------------------------------------------- meshes across processes
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _digest(fd, metrics) -> str:
+    """SHA-256 of a striped result's canvas and metrics bytes."""
+    import hashlib
+
+    h = hashlib.sha256(fd.cpu().numpy().tobytes())
+    h.update(metrics.tobytes())
+    return h.hexdigest()
+
+
+def _wait_all(procs, timeout: float) -> list:
+    """The exit codes of `procs`, waiting `timeout` seconds at most; the
+    first failure (or the deadline) kills the rest, since a process whose
+    peer died waits in its collectives until the backend's own timeout."""
+    deadline = time.monotonic() + timeout
+    try:
+        while (any(p.poll() is None for p in procs)
+               and all(p.returncode in (None, 0) for p in procs)
+               and time.monotonic() < deadline):
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs]
+
+
+def mesh_worker() -> int:
+    """One of phase 15's two NCCL processes (JPEG2PNG_* from the
+    environment): two bands on its own card, the smoke JPEG striped over
+    the four; rank 0 writes the digest of the gathered result."""
+    from jpeg2png_tpu_torch.io import read_jpeg
+    from jpeg2png_tpu_torch.parallel import distributed
+    from jpeg2png_tpu_torch.parallel.mesh import stripe_mesh
+    from jpeg2png_tpu_torch.parallel.stripes import solve_striped
+
+    rank = int(os.environ["JPEG2PNG_PROCESS_ID"])
+    distributed.initialize(device=DEVICE, devices=[f"cuda:{rank}"] * 2)
+    mesh = stripe_mesh(STRIPE_BANDS)
+    require(mesh.first == 2 * rank and len(mesh.devices) == 2,
+            f"rank {rank}: bands {mesh.first} + {len(mesh.devices)}")
+    datas, quants, samps = _args(read_jpeg(SMOKE_JPEG))
+    zero_counts()
+    fd, m = solve_striped(datas, quants, samps, 0.3, [0.001] * 3, 50, mesh)
+    launches = read_counts()
+    fd = distributed.gather_output(fd)
+    if distributed.is_primary():
+        pathlib.Path(os.environ["CHIP_SMOKE_MESH_OUT"]).write_text(
+            json.dumps({"digest": _digest(fd, m), "launches": launches,
+                        "counts": mesh.comm.counts}))
+    distributed.shutdown()
+    return 0
+
+
+def phase_meshes(card: str):
+    """The multi-process mesh code that one card can hold: a one-process
+    NCCL group whose process names four devices, all cuda:0; in it
+    stripe_mesh(4) through the global band layout and DistributedComm
+    (its all-gather summed in band order, NCCL on the card) and
+    batch_stripe_mesh(2, 2) through the global layout (a group inside one
+    process: LocalComm) and solve_striped_batched's gathers, each result
+    torch.equal to the same solve outside the group; the communicator's
+    sum bit-equal to LocalComm's on random vectors.  With two cards or
+    more, two NCCL processes with two bands each on their own card, the
+    smoke JPEG bit-equal to the one-process 4-band solve."""
+    import numpy as np
+    import torch
+
+    from jpeg2png_tpu_torch.io import read_jpeg
+    from jpeg2png_tpu_torch.parallel import distributed, stripes
+    from jpeg2png_tpu_torch.parallel.mesh import (
+        LocalComm, batch_stripe_mesh, stripe_mesh)
+
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    datas, quants, samps = _args(read_jpeg(SMOKE_JPEG))
+    batch = [datas, _reordered(datas)]
+    it, nb, ns = 50, 2, 2
+    bodies = {"f32": ("fused_grad_striped", "fused_project_multi"),
+              "lite": ("fused_grad_striped_lite", "fused_project_multi_lite")}
+    # the references, outside any group
+    refs, batch_refs = {}, {}
+    for body in bodies:
+        refs[body] = stripes.solve_striped(
+            datas, quants, samps, 0.3, [0.001] * 3, it,
+            stripe_mesh(STRIPE_BANDS, [dev] * STRIPE_BANDS), body=body)
+        batch_refs[body] = [stripes.solve_striped(
+            batch[b], quants, samps, 0.3, [0.001] * 3, it,
+            stripe_mesh(ns, [dev] * ns), body=body) for b in range(nb)]
+    out = {}
+    rank, world = distributed.initialize(
+        f"localhost:{_free_port()}", 1, 0, DEVICE, [dev] * STRIPE_BANDS)
+    try:
+        require((rank, world) == (0, 1)
+                and distributed.global_device_count() == STRIPE_BANDS,
+                f"the one-process group: {rank}, {world}, "
+                f"{distributed.global_device_count()} devices")
+        rng = np.random.default_rng(15)
+        for width in (6, 7):
+            xs = [torch.tensor(rng.standard_normal(width) * 10.0 ** rng
+                               .integers(-6, 6, width), dtype=torch.float32,
+                               device=dev) for _ in range(STRIPE_BANDS)]
+            got = distributed.DistributedComm(
+                [dev] * STRIPE_BANDS, 0, [STRIPE_BANDS]).all_reduce(xs)
+            want = LocalComm([dev] * STRIPE_BANDS).all_reduce(xs)
+            require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f"the all-gather sum of {width} floats differs from "
+                    "LocalComm's")
+        for body, kernels in bodies.items():
+            mesh = stripe_mesh(STRIPE_BANDS)
+            require(type(mesh.comm).__name__ == "DistributedComm"
+                    and mesh.first == 0 and len(mesh.devices) == STRIPE_BANDS,
+                    f"stripe_mesh in the group: {mesh}")
+            zero_counts()
+            (fd, m), ms, _ = _timed_solve(lambda: stripes.solve_striped(
+                datas, quants, samps, 0.3, [0.001] * 3, it, mesh, body=body))
+            launches = read_counts()
+            _expect(launches, _launches(**{k: STRIPE_BANDS * it
+                                           for k in kernels}),
+                    f"stripe_mesh in a group ({body} body)")
+            require(mesh.comm.counts == {"halo": 2 * it, "all_reduce": it},
+                    f"collectives {mesh.comm.counts}")
+            ref, m_ref = refs[body]
+            require(torch.equal(fd, ref) and np.array_equal(m, m_ref),
+                    f"stripe_mesh in a group ({body}): differs from the "
+                    "LocalComm solve")
+            meshes = batch_stripe_mesh(nb, ns)
+            require([g.ranks for g in meshes] == [(0,), (0,)]
+                    and all(isinstance(g.comm, LocalComm) for g in meshes),
+                    f"batch_stripe_mesh in the group: {meshes}")
+            zero_counts()
+            (fd_b, m_b), ms_b, _ = _timed_solve(
+                lambda: stripes.solve_striped_batched(
+                    batch, [quants] * nb, samps, 0.3, [0.001] * 3, it,
+                    meshes, body=body))
+            launches_b = read_counts()
+            _expect(launches_b, _launches(**{k: nb * ns * it
+                                             for k in kernels}),
+                    f"batch_stripe_mesh in a group ({body} body)")
+            for b, (ref, m_ref) in enumerate(batch_refs[body]):
+                require(torch.equal(fd_b[b], ref)
+                        and np.array_equal(m_b[b], m_ref),
+                        f"batched striping in a group ({body}) image {b}: "
+                        "differs from its own solve_striped")
+            out[body] = {"ms_per_iteration": ms / it,
+                         "batched_ms_per_iteration": ms_b / it,
+                         "launches": launches, "batched_launches": launches_b}
+            log(f"  {body} body in a one-process NCCL group, every band on "
+                f"{dev}: stripe_mesh({STRIPE_BANDS}) {ms / it:.3f} ms per "
+                f"iteration, launches {launches}; batch_stripe_mesh({nb}, "
+                f"{ns}) {ms_b / it:.3f} ms per iteration, launches "
+                f"{launches_b}; each torch.equal to its solve outside the "
+                f"group  [{card}]")
+    finally:
+        distributed.shutdown()
+    if torch.cuda.device_count() >= 2:
+        OUT_DIR.mkdir(parents=True, exist_ok=True)
+        result = OUT_DIR / "mesh_worker.json"
+        result.unlink(missing_ok=True)
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-worker"],
+            env=dict(os.environ, JPEG2PNG_COORDINATOR=f"localhost:{port}",
+                     JPEG2PNG_NUM_PROCESSES="2", JPEG2PNG_PROCESS_ID=str(r),
+                     CHIP_SMOKE_MESH_OUT=str(result)), cwd=ROOT)
+            for r in range(2)]
+        rcs = _wait_all(procs, 600)
+        require(rcs == [0, 0], f"two NCCL processes: exit codes {rcs}")
+        got = json.loads(result.read_text())
+        want = _launches(fused_grad_striped=2 * it, fused_project_multi=2 * it)
+        require(got["launches"] == want,
+                f"two NCCL processes: rank 0 launches {got['launches']}")
+        require(got["digest"] == _digest(*refs["f32"]),
+                "two NCCL processes x two bands: differs from the "
+                "one-process 4-band solve")
+        out["two_processes"] = got
+        log(f"  two NCCL processes, two bands each on its own card: the "
+            f"smoke JPEG bit-equal to the one-process {STRIPE_BANDS}-band "
+            f"solve; rank 0 launches K7 = K2 = {2 * it}  [{card}]")
+    else:
+        log("  one card: the two-process run needs two (skipped by the "
+            "card count)")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
+
+    if sys.argv[1:] == ["--mesh-worker"]:
+        return mesh_worker()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3350,6 +3557,8 @@ def main() -> int:
                     images)
     measurement = phase("phase 14: the measurement layer", phase_measurement,
                         card, records, files)
+    meshes = phase("phase 15: the multi-process meshes on one card",
+                   phase_meshes, card)
     log(json.dumps({"card": card, "build_s": build_s, "single": single,
                     "golden_i1000_psnr": converged,
                     "golden_striple_psnr": striple, "k3_points": k3_points,
@@ -3359,7 +3568,8 @@ def main() -> int:
                     "reader": reader, "reader_arith": reader_arith,
                     "quality": quality, "goldens_i50_more": goldens_more,
                     "several_workers": several,
-                    "measurement": measurement, "phase_s": phase_s,
+                    "measurement": measurement, "meshes": meshes,
+                    "phase_s": phase_s,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

@@ -246,15 +246,23 @@ def gather_striped_carry(carry):
     """This process's band carries -> the whole striped carry (every band
     in global band order: per-band f, side, prob state and local distance
     lists, then t) on rank 0, host tensors; None on the other ranks.  A
-    collective in a multi-process run: every process calls it."""
+    collective in a multi-process run: every process calls it, whatever
+    number of bands it holds (none included).  Every band's carry has one
+    structure, so each process's leaves split into its bands by their
+    count."""
     fs, sides, probs, pds, t = carry
-    leaves = []
-    spec = _flatten([list(b) for b in zip(fs, sides, probs, pds)], leaves)
+    leaves, specs = [], []
+    for band in zip(fs, sides, probs, pds):
+        specs.append(_flatten(list(band), leaves))
     per_rank = distributed.gather_to_primary(leaves)
     if per_rank is None:
         return None
-    bands = [b for rank_leaves in per_rank
-             for b in _unflatten(spec, rank_leaves)]
+    if not specs:
+        raise ValueError("rank 0 holds no band of the striped carry")
+    n = len(leaves) // len(specs)         # leaves per band
+    bands = [_unflatten(specs[0], rank_leaves[i:i + n])
+             for rank_leaves in per_rank
+             for i in range(0, len(rank_leaves), n)]
     fs, sides, probs, pds = (list(x) for x in zip(*bands))
     return (fs, sides, probs, pds, t)
 

@@ -63,6 +63,7 @@ from jpeg2png_tpu_torch.kernels.stripe_grad import (
     fused_grad_striped, fused_grad_striped_lite)
 from jpeg2png_tpu_torch.models import solver
 from jpeg2png_tpu_torch.models.solver import ChannelGeometry, canvas_shape
+from jpeg2png_tpu_torch.parallel import distributed
 
 BODIES = ("f32", "lite")
 
@@ -157,9 +158,13 @@ class _Striped:
         if body == "lite" and not stripe_grad.supports(C, L, W, self.samps):
             raise ValueError(f"the lite body does not take bands {L}x{W} at "
                              f"samps={self.samps}")
+        # a process that holds no band of a multi-process mesh builds the
+        # problem (its step size and weights) on its own device
+        self.home = (mesh.devices[0] if mesh.devices
+                     else distributed.home_device())
         prob = solver._build_problem(datas, quants, samps, weight, pweights,
                                      iterations, simd_compat_logging,
-                                     mesh.devices[0])
+                                     self.home)
         self.body, self.comm = body, mesh.comm
         self.C, self.H, self.W, self.H2, self.L = C, H, W, H2, L
         self.weight, self.step = prob.weight, prob.step_size
@@ -234,16 +239,20 @@ class _Striped:
                 with on_device(self.devices[b]):
                     grads.append(self._gradient(b, fs[b], sides[b], probs[b],
                                                 above[b], below[b], factor))
-            totals = self.comm.all_reduce(
-                [torch.cat([s, tv.reshape(1), tv2.reshape(1), pd])
-                 for (_, s, tv, tv2), pd in zip(grads, pds)])
+            vecs = [torch.cat([s, tv.reshape(1), tv2.reshape(1), pd])
+                    for (_, s, tv, tv2), pd in zip(grads, pds)]
+            # a process that holds no band of a multi-process mesh still
+            # takes part, and names the vectors' shape
+            totals = (self.comm.all_reduce(vecs) if vecs
+                      else self.comm.all_reduce(vecs, (self.C + 3,)))
             rows.append(totals[0])
             out = []
             for b in range(nb):
                 with on_device(self.devices[b]):
                     out.append(self._project(b, fs[b], sides[b], grads[b][0],
                                              factor, self._scale(totals[b])))
-            fs, sides, probs, dists = (list(x) for x in zip(*out))
+            fs, sides, probs, dists = (
+                [list(x) for x in zip(*out)] if out else ([], [], [], []))
             pds = [(d * w).sum().reshape(1)
                    for d, w in zip(dists, self.dist_w)]
             _build.check_finite("striped solve",
@@ -307,10 +316,12 @@ class _Striped:
 
     def output(self, fs) -> torch.Tensor:
         """This process's rows of the true canvas, [C, rows, W] on its
-        first band's device (all of [C, H, W] in a single process)."""
-        dev = self.devices[0]
+        first band's device (all of [C, H, W] in a single process; none
+        where it holds no band)."""
+        if not fs:
+            return torch.zeros((self.C, 0, self.W), device=self.home)
         rows = max(0, min(len(fs) * self.L, self.H - self.row0s[0]))
-        return torch.cat([f.to(dev) for f in fs], dim=1)[:, :rows]
+        return torch.cat([f.to(self.home) for f in fs], dim=1)[:, :rows]
 
 
 def striped_steps(
@@ -410,8 +421,16 @@ def solve_striped_batched(
     on one host thread each.  Each image's result is the one solve_striped
     gives on its group alone, bit for bit.  body as for solve_striped.
 
-    Returns (fdata [B, C, H, W] on the first group's first device,
-    metrics [B, iterations, 4] numpy)."""
+    Across processes (a batch_stripe_mesh of a joined group) every
+    process solves the groups it holds bands of, the groups whose bands
+    span processes one after another on one thread, in group order (so
+    that no two processes wait on each other's groups), and every process
+    gets the whole result, gathered once at the end.  Every process must
+    call it.
+
+    Returns (fdata [B, C, H, W] on the first group's first device, or
+    across processes on this process's first device, metrics [B,
+    iterations, 4] numpy)."""
     if len(datas) != len(mesh) or len(quants) != len(datas):
         raise ValueError(f"batch size {len(datas)} != mesh batch size "
                          f"{len(mesh)}")
@@ -423,10 +442,48 @@ def solve_striped_batched(
         return solve_striped(datas[b], quants[b], samps, weight, pweights,
                              iterations, mesh[b], simd_compat_logging, body)
 
+    def in_turn(bs):
+        return [one(b) for b in bs]
+
+    held = [b for b in range(len(mesh)) if mesh[b].devices]
+    spanning = [b for b in held if len(mesh[b].ranks) > 1]
+    jobs = [[b] for b in held if b not in spanning] + (
+        [spanning] if spanning else [])
     with concurrent.futures.ThreadPoolExecutor(
-            len(mesh), thread_name_prefix="j2p-stripe-group") as pool:
-        futures = [pool.submit(one, b) for b in range(len(mesh))]
-        results = [f.result() for f in futures]
-    dev = mesh[0].devices[0]
-    return (torch.stack([fd.to(dev) for fd, _ in results]),
-            np.stack([m for _, m in results]))
+            max(1, len(jobs)), thread_name_prefix="j2p-stripe-group") as pool:
+        futures = [pool.submit(in_turn, bs) for bs in jobs]
+        results = dict(zip((b for bs in jobs for b in bs),
+                           (r for f in futures for r in f.result())))
+    if not distributed.is_joined():
+        dev = mesh[0].devices[0]
+        return (torch.stack([results[b][0].to(dev)
+                             for b in range(len(mesh))]),
+                np.stack([results[b][1] for b in range(len(mesh))]))
+    # across processes: image b's rows from its group's processes (none
+    # from the others), and its metrics from the group's first process
+    home = distributed.home_device()
+    C, (_, W) = len(geoms[0]), canvas_shape(geoms[0])
+    fdata = torch.stack([
+        distributed.gather_output(
+            results[b][0].to(home) if b in results
+            else torch.zeros((C, 0, W), device=home))
+        for b in range(len(mesh))])
+    lead = torch.zeros((len(mesh), iterations, 4), device=home)
+    for b, (_, m) in results.items():
+        if mesh[b].ranks[0] == distributed.rank():
+            lead[b] = torch.from_numpy(m)
+    return fdata, _lead_metrics(lead, [g.ranks[0] for g in mesh])
+
+
+def _lead_metrics(lead: torch.Tensor, leaders) -> np.ndarray:
+    """[B, iterations, 4]: image b's rows from the process leaders[b] (each
+    process's `lead` holds the images it leads), one all-gather."""
+    import torch.distributed as dist
+
+    if not distributed.is_multi_process():
+        return lead.cpu().numpy()
+    parts = [torch.empty_like(lead) for _ in range(distributed.world_size())]
+    with on_device(lead.device):
+        dist.all_gather(parts, lead)
+    return torch.stack([parts[r][b] for b, r in enumerate(leaders)]
+                       ).cpu().numpy()

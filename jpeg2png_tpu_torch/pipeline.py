@@ -49,10 +49,11 @@ def _pack(channels, img: JpegImage, bits: int) -> np.ndarray:
 
 def striped_mesh_for(stripes: int, device):
     """The mesh a `--tpu-stripes N` decode runs on, or None for the
-    single-device solver.  N bands go one per device (one per process in a
-    multi-process run; the CPU holds any number); N beyond the devices
-    clamps to them with a warning on rank 0 (the mesh itself refuses to
-    truncate), and to the single-device solver when one is left."""
+    single-device solver.  N bands go one per device (in a multi-process
+    run the global devices, every process's: jpeg2png_tpu/pipeline.py:104;
+    the CPU holds any number); N beyond the devices clamps to them with a
+    warning on rank 0 (the mesh itself refuses to truncate), and to the
+    single-device solver when one is left."""
     if stripes <= 1:
         return None
     device = resolve_device(device)
@@ -67,7 +68,7 @@ def striped_mesh_for(stripes: int, device):
         stripes = avail
     if stripes <= 1:
         return None
-    if device.type == "cpu" and not distributed.is_multi_process():
+    if device.type == "cpu" and not distributed.is_joined():
         return stripe_mesh(stripes, [device] * stripes)
     return stripe_mesh(stripes)
 

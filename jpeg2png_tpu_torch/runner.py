@@ -99,9 +99,10 @@ def dp_degree(B: int, requested: Optional[int] = None,
               device="cuda") -> List[torch.device]:
     """The devices B work items fan out over, one host worker each:
 
-      * in a multi-process run, this process's own card only
-        (distributed.band_device(): process i on card i % count; the
-        files are split across the processes instead);
+      * in a multi-process run, this process's own devices
+        (distributed.local_devices(): its share of the cards it sees, the
+        counterpart of jax.local_devices(); the files are split across
+        the processes);
       * else `devices` as given, which may repeat a device (["cuda:0"] *
         2: two workers on one card; ["cpu"] * 4: four on the CPU), or
         every visible CUDA card for device "cuda", or [device];
@@ -109,7 +110,7 @@ def dp_degree(B: int, requested: Optional[int] = None,
 
     A CUDA device that is not there raises RuntimeError."""
     if distributed.is_multi_process():
-        devs = [distributed.band_device()]
+        devs = distributed.local_devices()
     elif devices is not None:
         devs = [torch.device(d) for d in devices]
         if not devs:

@@ -11,7 +11,11 @@ striped body's own communicator (distributed.DistributedComm):
   * the halo exchange of one iteration: shift_down then shift_up of the
     lite body's payload, [2C, HALO_ROWS, W] float32 per direction (f and
     the bf16 side state as f32, parallel/stripes.py::_Striped._exchange);
-  * the all-reduce of the [C + 3] vector of partial sums.
+  * the all-reduce of the [C + 3] vector of partial sums: the
+    communicator's, an all-gather of every band's vector added in band
+    order (the same bits for any layout), and beside it one
+    torch.distributed.all_reduce of the vector (`plain_all_reduce_s`),
+    which the communicator does not use.
 
 Each is the minimum over --reps repetitions, both ranks synchronised
 before each (and the card synchronised after it on the cards).
@@ -50,7 +54,7 @@ def worker(widths, reps, device) -> None:
     from jpeg2png_tpu_torch.parallel import distributed
 
     rank, world = distributed.initialize(device=device)
-    dev = distributed.band_device()
+    dev = distributed.home_device()
     comm = distributed.DistributedComm()
 
     def sync():
@@ -75,10 +79,12 @@ def worker(widths, reps, device) -> None:
             halo_s = best(lambda: (comm.shift_down([payload]),
                                    comm.shift_up([payload])))
             reduce_s = best(lambda: comm.all_reduce([sums]))
+            plain_s = best(lambda: torch.distributed.all_reduce(sums.clone()))
             if rank == 0:
                 print(json.dumps({
                     "W": w, "payload_bytes_per_dir": payload.numel() * 4,
                     "halo_round_trip_s": halo_s, "all_reduce_s": reduce_s,
+                    "plain_all_reduce_s": plain_s,
                     "processes": world, "backend": (
                         "nccl" if dev.type == "cuda" else "gloo"),
                     "device": (torch.cuda.get_device_name(dev)

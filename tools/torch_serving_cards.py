@@ -5,7 +5,7 @@ giant images over card groups.
     python3 tools/torch_serving_cards.py --device cpu --cards 4 --files 6 \\
         --iterations 3 --tile 1 --jpeg tests/fixtures/photo600x400_q20_420.jpg
 
-Three runs, each held to a reference, any miss exits non-zero:
+Four runs, each held to a reference, any miss exits non-zero:
 
   * serving: `cli --tpu-batch` on the 48-file corpus
     (tests/fixtures/torch_serving, the first --files of it) on 1, 2 and
@@ -27,17 +27,27 @@ Three runs, each held to a reference, any miss exits non-zero:
     (parallel.mesh.batch_stripe_mesh, stripes.solve_striped_batched),
     each bit-equal to the same image striped over 2 cards; ms per
     iteration (CUDA events, the second of two runs) and each card's peak
-    memory.
+    memory;
+  * batched striping over processes: the same 2 x 2 batch as 4 processes
+    on localhost, one card each (NCCL; gloo with --device cpu), image b
+    on processes 2b and 2b + 1 with a sub-group of its own
+    (batch_stripe_mesh in a joined group); every process's result, both
+    images, bit-equal to the image striped over 2 cards in one process
+    (by SHA-256); ms per iteration on each process (CUDA events on its
+    card, the second of two runs) and the slowest, beside the in-process
+    batch and the one image on 2 cards.
 
 With --device cpu every run is a rehearsal on the CPU: the serving runs
 use the one CPU worker the CLI gives, the batched striping four CPU
-bands, the processes gloo.  Prints the first card's name and power limit,
+bands, the processes gloo (one thread each, as the batched striping's
+reference).  Prints the first card's name and power limit,
 then one JSON line of the results.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import os
@@ -106,6 +116,8 @@ def proc_worker(args) -> None:
     rank = int(os.environ["JPEG2PNG_PROCESS_ID"])
     world = int(os.environ["JPEG2PNG_NUM_PROCESSES"])
     files = _corpus(args)
+    if args.device == "cpu":
+        torch.set_num_threads(1)        # the processes share the host's cores
     # a warm-up of this rank's share on its card, outside the group: the
     # measured run then finds the libraries loaded and the card's context
     # made, as the serving runs' second run does
@@ -134,15 +146,22 @@ def _spawn(args, mode, out_dir, result, env_extra, threads=None):
     return subprocess.Popen(argv, env=dict(os.environ, **env_extra), cwd=ROOT)
 
 
-def _wait(procs, timeout):
+def _wait(procs, timeout: float) -> list:
+    """The exit codes of `procs`, waiting `timeout` seconds at most; the
+    first failure (or the deadline) kills the rest, since a process whose
+    peer died waits in its collectives until the backend's own timeout."""
+    deadline = time.monotonic() + timeout
     try:
-        rcs = [p.wait(timeout=timeout) for p in procs]
+        while (any(p.poll() is None for p in procs)
+               and all(p.returncode in (None, 0) for p in procs)
+               and time.monotonic() < deadline):
+            time.sleep(0.2)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    return rcs
+    return [p.returncode for p in procs]
 
 
 def _pixels(path: pathlib.Path):
@@ -302,6 +321,13 @@ def _timed(fn, devices):
     return out, start.elapsed_time(end)
 
 
+def _digest(fd, metrics) -> str:
+    """SHA-256 of an image's canvas and metrics bytes."""
+    h = hashlib.sha256(fd.cpu().numpy().tobytes())
+    h.update(metrics.tobytes())
+    return h.hexdigest()
+
+
 def batched_striping(args) -> dict:
     """Two copies of the problem as 2 images x 2 bands over 4 devices,
     each equal to the image striped over 2 devices."""
@@ -316,6 +342,9 @@ def batched_striping(args) -> dict:
         devices = [torch.device("cuda", i) for i in range(4)]
     else:
         devices = [torch.device("cpu")] * 4
+        # one thread, as in the processes of batched_processes: the CPU's
+        # sums split by thread count
+        torch.set_num_threads(1)
     datas, quants, samps, weight, pweights, it = _problem(args)
     (ref, m_ref), ms_ref = _timed(lambda: stripes.solve_striped(
         datas, quants, samps, weight, pweights, it,
@@ -343,6 +372,94 @@ def batched_striping(args) -> dict:
     return {"canvas": [H, W], "mp": H * W / 1e6, "iterations": it,
             "ms_per_iteration": ms / it,
             "ms_per_iteration_one_image_2_devices": ms_ref / it,
+            "peak_bytes_per_card": peak, "bit_equal": True,
+            "digest": _digest(ref, m_ref)}
+
+
+def batch_worker(args) -> None:
+    """One process of the batched striping over processes (JPEG2PNG_* from
+    the environment): its share of batch_stripe_mesh(2, 2) over the
+    global devices; writes its times and the digests of both images."""
+    import torch
+
+    from jpeg2png_tpu_torch.parallel import distributed, stripes
+    from jpeg2png_tpu_torch.parallel.mesh import batch_stripe_mesh
+
+    if args.device == "cpu":
+        torch.set_num_threads(1)
+    rank, world = distributed.initialize(device=args.device)
+    datas, quants, samps, weight, pweights, it = _problem(args)
+    mesh = batch_stripe_mesh(2, 2)
+    devices = distributed.local_devices()
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(d)
+    (fd, m), ms = _timed(lambda: stripes.solve_striped_batched(
+        [datas, datas], [quants, quants], samps, weight, pweights, it,
+        mesh), devices)
+    worst = torch.tensor([ms], dtype=torch.float64,
+                         device=distributed.home_device())
+    torch.distributed.all_reduce(worst, op=torch.distributed.ReduceOp.MAX)
+    pathlib.Path(args.result).write_text(json.dumps({
+        "rank": rank, "ms": ms, "ms_slowest_rank": float(worst),
+        "groups": [list(g.ranks) for g in mesh],
+        "comms": [type(g.comm).__name__ for g in mesh],
+        "counts": [g.comm.counts for g in mesh if g.devices],
+        "peak_bytes": [torch.cuda.max_memory_allocated(d)
+                       if d.type == "cuda" else None for d in devices],
+        "digests": [_digest(fd[b], m[b]) for b in range(2)]}))
+    distributed.shutdown()
+
+
+def batched_processes(args, batched: dict) -> dict:
+    """batched_striping's batch as 4 processes of one card each, image b
+    over processes 2b and 2b + 1 (a sub-group each); every process's
+    images against the in-process reference's digest."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out_dir = OUT / "batched_processes"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs, results = [], []
+    for r in range(4):
+        results.append(out_dir / f"rank{r}.json")
+        results[-1].unlink(missing_ok=True)
+        procs.append(subprocess.Popen(
+            [sys.executable, __file__, "--batch-worker", "--device",
+             args.device, "--jpeg", str(args.jpeg), "--tile", str(args.tile),
+             "--iterations-striped", str(args.iterations_striped),
+             "--result", str(results[-1])],
+            env=dict(os.environ, JPEG2PNG_COORDINATOR=f"localhost:{port}",
+                     JPEG2PNG_NUM_PROCESSES="4", JPEG2PNG_PROCESS_ID=str(r)),
+            cwd=ROOT))
+    rcs = _wait(procs, args.timeout)
+    _check(rcs == [0] * 4, f"batched striping over processes: exit codes "
+                           f"{rcs}")
+    ranks = [json.loads(p.read_text()) for p in results]
+    it = batched["iterations"]
+    for st in ranks:
+        _check(st["groups"] == [[0, 1], [2, 3]]
+               and st["comms"].count("DistributedComm") == 1,
+               f"rank {st['rank']}: groups {st['groups']}, {st['comms']}")
+        _check(st["counts"] == [{"halo": 4 * it, "all_reduce": 2 * it}],
+               f"rank {st['rank']}: collectives {st['counts']}")
+        _check(st["digests"] == [batched["digest"]] * 2,
+               f"rank {st['rank']}: an image differs from the image "
+               "striped over 2 devices")
+    ms = ranks[0]["ms_slowest_rank"]
+    peak = [st["peak_bytes"][0] for st in ranks]
+    print(f"  batched striping over 4 processes (a sub-group per image): "
+          f"{ms / it:.3f} ms per iteration (slowest rank; per rank "
+          f"{[round(st['ms'] / it, 3) for st in ranks]}); in one process "
+          f"{batched['ms_per_iteration']:.3f}, one image over 2 devices "
+          f"{batched['ms_per_iteration_one_image_2_devices']:.3f}; peak GiB "
+          f"per card {[p and round(p / 2**30, 2) for p in peak]}; "
+          "every image bit-equal", flush=True)
+    return {"ms_per_iteration": ms / it,
+            "ms_per_iteration_per_rank": [st["ms"] / it for st in ranks],
+            "ms_per_iteration_in_one_process": batched["ms_per_iteration"],
+            "ms_per_iteration_one_image_2_devices":
+                batched["ms_per_iteration_one_image_2_devices"],
             "peak_bytes_per_card": peak, "bit_equal": True}
 
 
@@ -362,6 +479,8 @@ def main() -> int:
                    help=argparse.SUPPRESS)
     p.add_argument("--proc-worker", action="store_true",
                    help=argparse.SUPPRESS)
+    p.add_argument("--batch-worker", action="store_true",
+                   help=argparse.SUPPRESS)
     p.add_argument("--out-dir", help=argparse.SUPPRESS)
     p.add_argument("--result", help=argparse.SUPPRESS)
     p.add_argument("--threads", type=int, default=None, help=argparse.SUPPRESS)
@@ -371,6 +490,9 @@ def main() -> int:
         return 0
     if args.proc_worker:
         proc_worker(args)
+        return 0
+    if args.batch_worker:
+        batch_worker(args)
         return 0
 
     import torch
@@ -405,13 +527,21 @@ def main() -> int:
     t0 = time.perf_counter()
     batched = batched_striping(args)
     batched_s = time.perf_counter() - t0
+    if args.device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batched_procs = batched_processes(args, batched)
+    batched_procs_s = time.perf_counter() - t0
     print(json.dumps({"card": card, "cards": args.cards,
                       "files": args.files, "iterations": args.iterations,
                       "serving": serve, "processes": procs,
                       "batched_striping": batched,
+                      "batched_striping_processes": batched_procs,
                       "seconds": {"build": build_s, "serving": serve_s,
                                   "processes": procs_s,
-                                  "batched_striping": batched_s}}))
+                                  "batched_striping": batched_s,
+                                  "batched_striping_processes":
+                                      batched_procs_s}}))
     return 0
 
 
