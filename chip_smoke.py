@@ -6,7 +6,8 @@
 Phases (each raises on failure; the traceback then ends the run with a
 non-zero exit and no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the host JPEG entropy decoder (cc) and the CUDA kernels from
+  2. build the host libraries (the JPEG entropy decoder and the PNG row
+     filter, cc) and the CUDA kernels from
      jpeg2png_tpu_torch/csrc (one nvcc per source, in parallel) and print
      the build seconds and ptxas report;
   3. TF32 off for the plain PyTorch versions;
@@ -53,6 +54,9 @@ non-zero exit and no result line):
      states, beside the bound and the per-iteration streaming figure) and
      the solver's set-up at photo512; the tier sweep: every tier at 0.26,
      1.23, 3.15, 6.29 and 8.0 MP (the numbers that set the rule's gates);
+     the PNG writer on the decode's pixels: the encode split into its
+     filter (csrc/png_filter.c) and its deflate, the bytes, and in turns
+     the filter-0 encode the port wrote before (bytes and seconds);
   7. serving: cli.main --tpu-batch on the 48-file corpus
      (tests/fixtures/torch_serving), with the committed gates and with
      gates that give every class work: the launch count of each kernel
@@ -197,31 +201,60 @@ def require(cond: bool, msg: str) -> None:
 
 # --------------------------------------------------------------- helpers
 
-def read_own_png(path: pathlib.Path):
-    """Pixels of a PNG this package wrote (filter 0 on every row)."""
+def unfilter_png(data: bytes):
+    """Pixels of a PNG this package wrote (8- or 16-bit gray or RGB, not
+    interlaced), unfiltered with numpy: None, Sub, Up, Average and Paeth,
+    as tests/pngdec.py's decode_png undoes them, with every pixel of an
+    anti-diagonal at once (a pixel needs its left, upper and upper-left
+    neighbours, all on the two diagonals before its own)."""
     import struct
     import zlib
 
     import numpy as np
 
-    data = path.read_bytes()
-    pos, idat, ihdr = 8, b"", None
+    pos, idat, ihdr = 8, [], None
     while pos < len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
         tag = data[pos + 4:pos + 8]
         if tag == b"IHDR":
             ihdr = struct.unpack(">IIBBBBB", data[pos + 8:pos + 8 + n])
         elif tag == b"IDAT":
-            idat += data[pos + 8:pos + 8 + n]
+            idat.append(data[pos + 8:pos + 8 + n])
         pos += 12 + n
     w, h, depth, ctype = ihdr[:4]
-    nchan = 3 if ctype == 2 else 1
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
-    require((rows[:, 0] == 0).all(), f"{path}: unexpected PNG filter")
-    pix = rows[:, 1:]
+    bpp = (3 if ctype == 2 else 1) * depth // 8
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = rows.reshape(h, 1 + w * bpp)
+    ftype = rows[:, 0].astype(np.int16)
+    require(int(ftype.max()) <= 4, f"PNG filter type {int(ftype.max())}")
+    # skewed: diagonal d = r + x holds pixel (r, x) at [d, r]; the pixels
+    # carry one row and one diagonal of zeros before them, so left of
+    # column 0 and above row 0 read zero
+    r, x = np.divmod(np.arange(h * w), w)
+    line = np.zeros((h + w - 1, h, bpp), np.int16)
+    line[r + x, r] = rows[:, 1:].reshape(h * w, bpp)
+    pix = np.zeros((h + w + 1, h + 1, bpp), np.int16)
+    for d in range(h + w - 1):
+        lo, hi = max(0, d - w + 1), min(h - 1, d) + 1
+        a = pix[d, lo + 1:hi + 1]          # left
+        b = pix[d, lo:hi]                  # up
+        c = pix[d - 1, lo:hi]              # up-left
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        f = ftype[lo:hi, None]
+        pred = np.where(f == 1, a, np.where(f == 2, b, np.where(
+            f == 3, (a + b) >> 1, np.where(f == 4, paeth, 0))))
+        pix[d + 1, lo + 1:hi + 1] = (line[d, lo:hi] + pred) & 0xFF
+    out = pix[r + x + 1, r + 1].astype(np.uint8).reshape(h, w * bpp)
     if depth == 16:
-        pix = pix.copy().view(">u2").astype(np.uint16)
-    return pix.reshape(h, w, nchan) if nchan == 3 else pix.reshape(h, w)
+        out = out.view(">u2").astype(np.uint16)
+    return out.reshape(h, w, 3) if ctype == 2 else out.reshape(h, w)
+
+
+def read_own_png(path: pathlib.Path):
+    """Pixels of a PNG file this package wrote (`unfilter_png`)."""
+    return unfilter_png(pathlib.Path(path).read_bytes())
 
 
 def psnr(a, b) -> float:
@@ -1715,6 +1748,65 @@ def _patched_plain(module):
     return cm()
 
 
+def _png_writer_split(pix, written: bytes, card: str, reps: int = 3):
+    """The PNG writer on the decode's pixels: the whole encode, its filter
+    (csrc/png_filter.c) and its deflate, medians of `reps` runs, and the
+    bytes; beside them, in turns, the filter-0 encode the port wrote before
+    libpng's filters (filter type 0 on every row, zlib.compress level 6),
+    built here as a measurement.  The CLI's file must be the encode's
+    bytes, and both encodes must give the pixels back."""
+    import statistics
+    import struct
+    import zlib
+
+    import numpy as np
+
+    from jpeg2png_tpu_torch.io import png_writer
+
+    h, w = pix.shape[:2]
+    rows = np.ascontiguousarray(pix, np.uint8).reshape(h, -1)
+    bpp = 3
+
+    def old_encode():
+        filtered = np.zeros((h, rows.shape[1] + 1), np.uint8)
+        filtered[:, 1:] = rows
+        ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+        return (png_writer._SIG + png_writer._chunk(b"IHDR", ihdr)
+                + png_writer._chunk(b"IDAT", zlib.compress(filtered, 6))
+                + png_writer._chunk(b"IEND", b""))
+
+    times = {k: [] for k in ("encode", "filter", "deflate", "old")}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        data = png_writer.encode_png(pix)
+        times["encode"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        filtered = png_writer.filter_rows(rows, bpp)
+        times["filter"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        png_writer.deflate_rows(filtered, bpp)
+        times["deflate"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        old = old_encode()
+        times["old"].append(time.perf_counter() - t0)
+    require(data == written, "the CLI's PNG is not encode_png's bytes")
+    require(np.array_equal(unfilter_png(data), pix)
+            and np.array_equal(unfilter_png(old), pix),
+            "a PNG encode does not give the pixels back")
+    med = {k: statistics.median(v) for k, v in times.items()}
+    filters = np.bincount(filtered[:, 0], minlength=5).tolist()
+    log(f"  PNG writer at {h}x{w} RGB8 (medians of {reps}): encode "
+        f"{med['encode']:.4f} s = filter {med['filter']:.4f} s + deflate "
+        f"{med['deflate']:.4f} s (+ packing, chunks), {len(data)} bytes; "
+        f"rows by filter None/Sub/Up/Average/Paeth {filters}; the filter-0 "
+        f"encode, same pixels, in turns: {med['old']:.4f} s, {len(old)} "
+        f"bytes ({len(old) / len(data):.3f}x)  [{card}]")
+    return {"encode_s": med["encode"], "filter_s": med["filter"],
+            "deflate_s": med["deflate"], "bytes": len(data),
+            "filter0_s": med["old"], "filter0_bytes": len(old),
+            "rows_by_filter": filters}
+
+
 def phase_main_path(card: str, errs):
     import numpy as np
     import torch
@@ -1752,9 +1844,8 @@ def phase_main_path(card: str, errs):
     pix = read_own_png(out)
     require(pix.shape == (img.height, img.width, 3),
             f"output shape {pix.shape}")
-    t0 = time.perf_counter()
-    encode_png(pix)
-    png_s = time.perf_counter() - t0
+    png = _png_writer_split(pix, out.read_bytes(), card)
+    png_s = png["encode_s"]
     log(f"  host: JPEG read {read_s:.3f} s, PNG encode {png_s:.3f} s")
 
     # the same decode through the pipeline, forced to the two-lite tier
@@ -1907,7 +1998,7 @@ def phase_main_path(card: str, errs):
                      "total_s": total_s, "two_lite_decode_s": lite_s,
                      "setup_ms": setup_ms, "jpeg_read_s": read_s,
                      "k1_split_ms": k1_split,
-                     "png_encode_s": png_s,
+                     "png_encode_s": png_s, "png": png,
                      "psnr_vs_two": {t: p if math.isfinite(p) else None
                                      for t, p in p_tiers.items()},
                      "psnr_kernel_vs_plain": {

@@ -3,9 +3,10 @@ ctypes.
 
 Each source under jpeg2png_tpu_torch/csrc/ exports a plain C interface
 (no PyTorch or Python headers).  The CUDA kernels (*.cu) compile with
-`nvcc` in seconds each; the host JPEG entropy decoder (jpeg_entropy.c)
-compiles with the C compiler ($CC, else `cc`) and needs no CUDA, so the
-CPU tests build and run it too.  Libraries land in
+`nvcc` in seconds each; the host libraries, the JPEG entropy decoder
+(jpeg_entropy.c) and the PNG row filter (png_filter.c), compile with the
+C compiler ($CC, else `cc`) and need no CUDA, so the CPU tests build and
+run them too.  Libraries land in
 jpeg2png_tpu_torch/_build/ (listed in .gitignore), named by a hash of
 the source and the flags: an unchanged tree never rebuilds, and a
 changed source never loads a stale library.  `build()` starts one
@@ -60,11 +61,14 @@ LIBRARIES = {
     "project_lite": ("project_lite.cu", []),
 }
 
-# host libraries: name -> source file under csrc/, built with the C
-# compiler ($CC, else cc)
+# host libraries: name -> (source file under csrc/, extra flags), built
+# with the C compiler ($CC, else cc)
 HOST_LIBRARIES = {
     # the JPEG entropy decoder (io/jpeg_reader.py)
-    "jpeg_entropy": "jpeg_entropy.c",
+    "jpeg_entropy": ("jpeg_entropy.c", []),
+    # libpng's adaptive row filter (io/png_writer.py); -O3 vectorises its
+    # scoring loop, -O2 does not
+    "png_filter": ("png_filter.c", ["-O3"]),
 }
 HOST_FLAGS = ["-std=c11", "-O2", "-shared", "-fPIC"]
 
@@ -95,7 +99,8 @@ def nvcc_path() -> str:
 
 def _source_flags(name: str):
     if name in HOST_LIBRARIES:
-        return HOST_LIBRARIES[name], HOST_FLAGS
+        src, extra = HOST_LIBRARIES[name]
+        return src, HOST_FLAGS + extra
     src, extra = LIBRARIES[name]
     return src, ARCH_FLAGS + COMMON_FLAGS + extra
 

@@ -193,10 +193,13 @@ def test_torch_cpu_tensors_take_the_plain_version():
 
 
 def test_torch_host_decoder_is_plain_c():
-    """The entropy decoder builds with a plain C compiler: standard
-    headers only, no Python, PyTorch or CUDA."""
+    """The host libraries, the entropy decoder and the PNG row filter,
+    build with a plain C compiler: standard headers only, no Python,
+    PyTorch, CUDA, zlib or libpng."""
     import re
 
-    src = (REPO / "jpeg2png_tpu_torch" / "csrc" / "jpeg_entropy.c").read_text()
-    includes = set(re.findall(r'#include\s*[<"]([^>"]+)[>"]', src))
-    assert includes <= {"stddef.h", "stdint.h", "string.h"}, includes
+    for name in ("jpeg_entropy.c", "png_filter.c"):
+        src = (REPO / "jpeg2png_tpu_torch" / "csrc" / name).read_text()
+        includes = set(re.findall(r'#include\s*[<"]([^>"]+)[>"]', src))
+        assert includes <= {"stddef.h", "stdint.h", "string.h"}, (name,
+                                                                  includes)

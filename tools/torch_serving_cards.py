@@ -164,33 +164,6 @@ def _wait(procs, timeout: float) -> list:
     return [p.returncode for p in procs]
 
 
-def _pixels(path: pathlib.Path):
-    """Pixels of a PNG the port wrote (io/png_writer.py: filter 0 on every
-    row), unfiltered with numpy; any other filter fails the run."""
-    import struct
-    import zlib
-
-    import numpy as np
-
-    data = path.read_bytes()
-    pos, idat, ihdr = 8, b"", None
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        tag = data[pos + 4:pos + 8]
-        if tag == b"IHDR":
-            ihdr = struct.unpack(">IIBBBBB", data[pos + 8:pos + 8 + n])
-        elif tag == b"IDAT":
-            idat += data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-    w, h, depth, ctype = ihdr[:4]
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
-    _check(bool((rows[:, 0] == 0).all()), f"{path}: a PNG filter other than 0")
-    pix = rows[:, 1:]
-    if depth == 16:
-        pix = pix.copy().view(">u2").astype(np.uint16)
-    return pix.reshape(h, w, -1) if ctype == 2 else pix.reshape(h, w)
-
-
 def _psnr(a, b) -> float:
     import numpy as np
 
@@ -202,6 +175,8 @@ def serving(args) -> dict:
     """cli --tpu-batch on 1, 2, ..., --cards cards and with -t 2, each in a
     process of its own; every PNG equal to the one-card run's."""
     import numpy as np
+
+    from chip_smoke import read_own_png
 
     files = _corpus(args)
     counts = [n for n in (1, 2, 4) if n < args.cards] + [args.cards]
@@ -236,7 +211,8 @@ def serving(args) -> dict:
         d = out[label].pop("dir")
         for f in files:
             png = f.stem + ".png"
-            _check(np.array_equal(_pixels(d / png), _pixels(one / png)),
+            _check(np.array_equal(read_own_png(d / png),
+                                  read_own_png(one / png)),
                    f"serving on {label}: {png} differs from the one-card "
                    "run's")
         out[label]["pixel_equal_to_one_card"] = True
@@ -246,6 +222,8 @@ def serving(args) -> dict:
 def processes(args, one_card_dir: pathlib.Path) -> dict:
     """cli --tpu-batch --tpu-distributed as --cards processes; the union
     of their PNGs against the one-card run's (> 45 dB each)."""
+    from chip_smoke import read_own_png
+
     files = _corpus(args)
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -272,8 +250,9 @@ def processes(args, one_card_dir: pathlib.Path) -> dict:
                f"rank {r} served {st['n_files']} files")
     worst = math.inf
     for f in files:
-        worst = min(worst, _psnr(_pixels(out_dir / (f.stem + ".png")),
-                                 _pixels(one_card_dir / (f.stem + ".png"))))
+        worst = min(worst, _psnr(
+            read_own_png(out_dir / (f.stem + ".png")),
+            read_own_png(one_card_dir / (f.stem + ".png"))))
     _check(worst > 45.0, f"processes: min PSNR {worst:.2f} dB vs one card")
     print(f"  {args.cards} processes: {len(files)} files, {wall_s:.3f} s from "
           f"launch to exit, per rank solve_s "
