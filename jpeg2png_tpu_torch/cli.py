@@ -38,6 +38,7 @@ import os
 import sys
 
 from jpeg2png_tpu_torch import __version__
+from jpeg2png_tpu_torch.utils import profiling
 from jpeg2png_tpu_torch.utils.config import (
     DEFAULT_ITERATIONS, DEFAULT_PWEIGHT, DEFAULT_WEIGHT, SolverConfig,
 )
@@ -200,10 +201,13 @@ def _run_batched(pairs, cfg, bits, logger, progress, threads, device,
     return errors
 
 
+@profiling.span("cli.main")
 def main(argv=None, stats=None) -> int:
     """Run the CLI on `argv` (default sys.argv[1:]); returns the exit
     code.  `stats`, a dict, receives the runner's stage breakdown of a
-    --tpu-batch run (runner.decode_files_batched)."""
+    --tpu-batch run (runner.decode_files_batched).  The call is one
+    "cli.main" span, the root of its request's spans
+    (utils/profiling.py)."""
     args = build_parser().parse_args(argv)
     if not args.inputs:
         build_parser().print_help()
@@ -281,11 +285,14 @@ def _decode_all(args, cfg, bits, outfiles, device, batched, stats) -> int:
         total = len(distinct[::world_size()]) * cfg.iterations[0]
     progress = None if (args.quiet or not primary) else ProgressBar(total)
 
+    parent = profiling.current()
+
     def run_one(pair):
         infile, outfile = pair
         try:
-            decode_file(infile, outfile, cfg, bits, logger, progress,
-                        device=device, stripes=args.tpu_stripes)
+            with profiling.within(parent):
+                decode_file(infile, outfile, cfg, bits, logger, progress,
+                            device=device, stripes=args.tpu_stripes)
             return None
         except (ValueError, OSError) as e:
             return f"{infile}: {e}"

@@ -30,6 +30,8 @@ import zlib
 
 import numpy as np
 
+from jpeg2png_tpu_torch.utils import profiling
+
 _SIG = b"\x89PNG\r\n\x1a\n"
 IDAT_BYTES = 8192       # libpng's PNG_ZBUF_SIZE: the size of a full IDAT
 SMALL_IMAGE = 16384     # up to this many filtered bytes, the window shrinks
@@ -196,5 +198,6 @@ def encode_png(pixels: np.ndarray, bits: int = 8) -> bytes:
 
 
 def write_png(path, pixels: np.ndarray, bits: int = 8) -> None:
-    with open(path, "wb") as f:
+    """Encode and write one PNG: a "png" span."""
+    with profiling.span("png"), open(path, "wb") as f:
         f.write(encode_png(pixels, bits))

@@ -71,6 +71,7 @@ from jpeg2png_tpu_torch.ops.blocks import deblockify
 from jpeg2png_tpu_torch.ops.dct_raster import idct_raster
 from jpeg2png_tpu_torch.ops.resample import (
     upsample_nearest_clamped, upsample_replicate)
+from jpeg2png_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -556,18 +557,21 @@ def solve_steps(datas, quants, samps, weight, pweights, iterations,
     lite tiers share theirs, so either resumes the other's carry).
 
     Returns (fdata [C, H, W] tensor, metrics [nsteps, 4] numpy, carry).
+    The set-up and the loop are the "solve.setup" and "solve.loop" spans.
     """
     device = resolve_device(device)
-    prob = _build_problem(datas, quants, samps, weight, pweights,
-                          iterations, simd_compat_logging, device)
-    tier = _resolve_tier(prob, tier, pweights)
-    if carry is None:
-        carry = _initial_carry(prob, tier)
-    elif _carry_format(carry) != _CARRY_FORMAT[tier]:
-        raise ValueError(f"a {_carry_format(carry)!r}-format carry cannot "
-                         f"resume a {tier!r}-tier solve")
-    carry, metrics = _run(prob, carry, iterations if nsteps is None
-                          else nsteps, tier)
+    with profiling.span("solve.setup"):
+        prob = _build_problem(datas, quants, samps, weight, pweights,
+                              iterations, simd_compat_logging, device)
+        tier = _resolve_tier(prob, tier, pweights)
+        if carry is None:
+            carry = _initial_carry(prob, tier)
+        elif _carry_format(carry) != _CARRY_FORMAT[tier]:
+            raise ValueError(f"a {_carry_format(carry)!r}-format carry "
+                             f"cannot resume a {tier!r}-tier solve")
+    with profiling.span("solve.loop"):
+        carry, metrics = _run(prob, carry, iterations if nsteps is None
+                              else nsteps, tier)
     return carry[0], metrics, carry
 
 
@@ -619,19 +623,21 @@ def solve_joint_chunked(
     device = resolve_device(device)
     if chunk is None:
         chunk = max(8, min(50, iterations // 20 or iterations))
-    prob = _build_problem(datas, quants, samps, weight, pweights,
-                          iterations, simd_compat_logging, device)
-    tier = _resolve_tier(prob, tier, pweights)
-    carry = _initial_carry(prob, tier)
+    with profiling.span("solve.setup"):
+        prob = _build_problem(datas, quants, samps, weight, pweights,
+                              iterations, simd_compat_logging, device)
+        tier = _resolve_tier(prob, tier, pweights)
+        carry = _initial_carry(prob, tier)
     all_metrics = []
     done = 0
-    while done < iterations:
-        n = min(chunk, iterations - done)
-        carry, metrics = _run(prob, carry, n, tier)
-        done += n
-        all_metrics.append(metrics)
-        if on_chunk is not None:
-            on_chunk(done, metrics)
+    with profiling.span("solve.loop"):
+        while done < iterations:
+            n = min(chunk, iterations - done)
+            carry, metrics = _run(prob, carry, n, tier)
+            done += n
+            all_metrics.append(metrics)
+            if on_chunk is not None:
+                on_chunk(done, metrics)
     metrics = (np.concatenate(all_metrics) if all_metrics
                else np.zeros((0, 4), np.float32))
     return carry[0], metrics

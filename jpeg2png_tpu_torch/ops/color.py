@@ -8,6 +8,8 @@ bitfactor = (1 << bits) / 256, so 16-bit white is 65280, not 65535.
 The float -> unsigned C cast truncates toward zero; the values are
 non-negative, so a cast to int32 on the device does the same, and the
 host packs to uint8/uint16 (PyTorch's uint16 has few operations).
+The casts and the copy between are the "fetch" span, which counts the
+bytes copied.
 """
 
 from __future__ import annotations
@@ -15,10 +17,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from jpeg2png_tpu_torch.utils import profiling
+
 
 def _pack(x: torch.Tensor, bits: int) -> np.ndarray:
-    out = x.to(torch.int32).cpu().numpy()
-    return out.astype(np.uint8 if bits == 8 else np.uint16)
+    with profiling.span("fetch") as sp:
+        out = x.to(torch.int32)
+        profiling.count(sp, "bytes", out.nbytes)
+        return out.cpu().numpy().astype(np.uint8 if bits == 8
+                                        else np.uint16)
 
 
 def ycbcr_to_rgb_packed(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,

@@ -27,6 +27,7 @@ from jpeg2png_tpu_torch.ops.resample import upsample_nearest_clamped
 from jpeg2png_tpu_torch.parallel import distributed
 from jpeg2png_tpu_torch.parallel.mesh import available_devices, stripe_mesh
 from jpeg2png_tpu_torch.parallel.stripes import solve_striped
+from jpeg2png_tpu_torch.utils import profiling
 from jpeg2png_tpu_torch.utils.config import SolverConfig
 from jpeg2png_tpu_torch.utils.logger import ConvergenceLogger
 from jpeg2png_tpu_torch.utils.progress import ProgressBar
@@ -179,8 +180,10 @@ def decode_file(
     """Full per-file pipeline (jpeg2png.c:120-172).  CSV rows stream
     DURING the solve (chunked execution), like the reference's in-loop
     logger (logger.c:20).  In a multi-process run every process decodes
-    and rank 0 alone writes the file and the CSV rows."""
-    img = read_jpeg(infile)
+    and rank 0 alone writes the file and the CSV rows.  The read is a
+    "read" span; the solve, the fetch and the write have their own."""
+    with profiling.span("read"):
+        img = read_jpeg(infile)
     primary = distributed.is_primary()
     stream = None
     if logger is not None and primary:

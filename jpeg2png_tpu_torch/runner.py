@@ -39,7 +39,6 @@ import dataclasses
 import functools
 import math
 import threading
-import time
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -59,6 +58,7 @@ from jpeg2png_tpu_torch.models.solver import (
 from jpeg2png_tpu_torch.ops.color import gray_packed, ycbcr_to_rgb_packed
 from jpeg2png_tpu_torch.ops.dct_raster import idct_raster
 from jpeg2png_tpu_torch.parallel import distributed
+from jpeg2png_tpu_torch.utils import profiling
 from jpeg2png_tpu_torch.utils.config import SolverConfig
 
 CHUNK_IMAGES = iter_step.MAX_BATCH   # images per K3 launch
@@ -131,34 +131,36 @@ def _run_on_cards(work, devices, stats: Optional[dict] = None) -> None:
     """Run `work`, callables fn(device), on one host thread per entry of
     `devices`: each thread takes the next item of one shared queue, in
     order, inside its device's context (on_device: the kernels launch on
-    the calling thread's current device).  The first exception on any
-    thread stops every thread taking more and is raised here once all
-    have stopped.  `stats` receives the devices (cards), the items each
-    ran (card_items) and each one's seconds inside its items
-    (card_busy_s)."""
+    the calling thread's current device), each item in an "item" span
+    (card: the CUDA ordinal), a child of the span open on the calling
+    thread.  The first exception on any thread stops every thread taking
+    more and is raised here once all have stopped.  `stats` receives the
+    devices (cards), the items each ran (card_items) and each one's
+    seconds inside its items (card_busy_s)."""
     queue = list(reversed(work))
     lock = threading.Lock()
     failed: List[BaseException] = []
-    items = [0] * len(devices)
-    busy = [0.0] * len(devices)
+    done: List[list] = [[] for _ in devices]
+    parent = profiling.current()
 
     def worker(k):
-        with on_device(devices[k]):
+        dev = devices[k]
+        with on_device(dev), profiling.within(parent):
             while True:
                 with lock:
                     if failed or not queue:
                         return
                     fn = queue.pop()
-                t0 = time.perf_counter()
+                sp = None
                 try:
-                    fn(devices[k])
+                    with profiling.span("item", card=dev.index) as sp:
+                        fn(dev)
                 except BaseException as e:
                     with lock:
                         failed.append(e)
                     raise
                 finally:
-                    busy[k] += time.perf_counter() - t0
-                    items[k] += 1
+                    done[k].append(sp)
 
     with concurrent.futures.ThreadPoolExecutor(
             len(devices), thread_name_prefix="j2p-card") as pool:
@@ -168,8 +170,8 @@ def _run_on_cards(work, devices, stats: Optional[dict] = None) -> None:
         raise failed[0]
     if stats is not None:
         stats["cards"] = [str(d) for d in devices]
-        stats["card_items"] = items
-        stats["card_busy_s"] = busy
+        stats["card_items"] = [len(d) for d in done]
+        stats["card_busy_s"] = [sum(sp.seconds for sp in d) for d in done]
 
 
 class _BucketSolve:
@@ -735,18 +737,20 @@ def decode_files_batched(
 
     `stats`, when given, receives: n_files, n_buckets, bucket_classes
     (dyn, dyn2, exact), bucket_shapes ({"HxW": members} of the dyn and
-    dyn2 buckets), bucket_sizes, bucket_tiers ({tier: images}),
-    k3_dispatches and k3_lite_dispatches (the K3 launches the f32 and
-    the lite dyn buckets make), read_s (threaded JPEG reads), cards (the
-    device of each worker), card_items and card_busy_s (the work items
-    each worker ran and its seconds inside them), solve_s (bucket solves
-    including the device-side crop, colour and the pixel fetch),
-    on_pixels_s (seconds inside on_pixels, summed over threads) and
-    wall_s.
+    dyn2 buckets), bucket_tiers ({tier: images}), k3_dispatches and
+    k3_lite_dispatches (the K3 launches the f32 and the lite dyn buckets
+    make), read_s (threaded JPEG reads), cards (the device of each
+    worker), card_items and card_busy_s (the work items each worker ran
+    and its seconds inside them), solve_s (bucket solves including the
+    device-side crop, colour and the pixel fetch), on_pixels_s (seconds
+    inside on_pixels, summed over threads) and wall_s (the read pool's
+    start to the last solve's or callback's end).  Each is read from the
+    spans of the call: "read.pool", "solve.pool" (the work items' set-up
+    and the card workers), one "item" per work item, one "on_pixels" per
+    callback (a child of the item that fetched the pixels).
     """
     if devices is None:
         resolve_device(device)    # no card: RuntimeError before any read
-    t_start = time.perf_counter()
     world = distributed.world_size()
     if world > 1:
         # the JAX package's split (runner.py:202-209): batched serving
@@ -765,9 +769,9 @@ def decode_files_batched(
             errors.append(f"{f}: {e}")
             return None
 
-    with concurrent.futures.ThreadPoolExecutor(io_threads) as pool:
+    with profiling.span("read.pool") as read_span, \
+            concurrent.futures.ThreadPoolExecutor(io_threads) as pool:
         images = list(pool.map(read_one, infiles))
-    read_s = time.perf_counter() - t_start
 
     iterations = cfg.iterations[0]
     buckets = plan_buckets(images, cfg.pweights)
@@ -782,8 +786,6 @@ def decode_files_batched(
             f"{k[0]} {k[1]}x{k[2]}" + ("" if k[3] == ((1, 1), (2, 2), (2, 2))
                                        else f" {k[3]}"): len(v)
             for k, v in buckets.items() if k[0] != "exact"}
-        stats["bucket_sizes"] = sorted((len(v) for v in buckets.values()),
-                                       reverse=True)
         tiers = {k: bucket_tier(k, cfg.pweights) for k in buckets}
         stats["bucket_tiers"] = {
             t: sum(len(v) for k, v in buckets.items() if tiers[k] == t)
@@ -793,17 +795,16 @@ def decode_files_batched(
             stats[name] = sum(
                 bucket_dispatches(len(v), iterations, streamed)
                 for k, v in buckets.items() if tiers[k] == tier)
-        stats["read_s"] = read_s
+        stats["read_s"] = read_span.seconds
 
     out: Dict[str, np.ndarray] = {}
-    cb_seconds = [0.0]
     lock = threading.Lock()
     failed_buckets = set()
 
-    def deliver(infile, pix):
-        t0 = time.perf_counter()
-        on_pixels(infile, pix)
-        return time.perf_counter() - t0
+    def deliver(parent, infile, pix):
+        with profiling.within(parent), profiling.span("on_pixels") as sp:
+            on_pixels(infile, pix)
+        return sp
 
     def fail(b, members, e):
         """Bucket b drops out: one error line per member, once."""
@@ -822,8 +823,8 @@ def decode_files_batched(
         except (ValueError, OSError) as e:
             fail(b, members, e)
 
-    t_solve0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(io_threads) as cb_pool:
+    with concurrent.futures.ThreadPoolExecutor(io_threads) as cb_pool, \
+            profiling.span("solve.pool") as solve_span:
         jobs = []
 
         def emit(i, fd):
@@ -831,7 +832,8 @@ def decode_files_batched(
             if on_pixels is None:
                 out[infiles[i]] = pix
             else:
-                jobs.append(cb_pool.submit(deliver, infiles[i], pix))
+                jobs.append(cb_pool.submit(deliver, profiling.current(),
+                                           infiles[i], pix))
 
         work = []
         for b, (key, members) in enumerate(buckets.items()):
@@ -881,11 +883,11 @@ def decode_files_batched(
         work.sort(key=lambda w: -w[0])
         devs = dp_degree(len(work), data_parallel, devices, device)
         _run_on_cards([fn for _, fn in work], devs, stats)
-        solve_s = time.perf_counter() - t_solve0
-        for job in jobs:
-            cb_seconds[0] += job.result()   # surfaces callback exceptions
+    # result() surfaces callback exceptions
+    cb_spans = [job.result() for job in jobs]
     if stats is not None:
-        stats["solve_s"] = solve_s
-        stats["on_pixels_s"] = cb_seconds[0]
-        stats["wall_s"] = time.perf_counter() - t_start
+        stats["solve_s"] = solve_span.seconds
+        stats["on_pixels_s"] = sum(sp.seconds for sp in cb_spans)
+        t_end = max([solve_span.t1] + [sp.t1 for sp in cb_spans])
+        stats["wall_s"] = (t_end - read_span.t0) / 1e9
     return out

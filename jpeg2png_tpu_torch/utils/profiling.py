@@ -14,19 +14,24 @@ JAX package captures XLA device traces.  Here:
   * kernel_cost_table: the bytes and operations each kernel K1-K7 must
     move or do at given shapes, and the least time an H100 could take for
     them (the bounds of chip_smoke.py's kernel records and PERF.md);
-  * timed / solver_rate: wall-clock helpers.
+  * span / recording / within / count: the port's spans, one per layer
+    boundary (the CLI call, a file's read, a solve's set-up and loop, the
+    pixel fetch, a PNG write, the runner's read and solve pools, work
+    items and pixel callbacks), on time.perf_counter_ns and the thread's
+    id, kept in memory inside recording() and nowhere else; the runner's
+    stage seconds are read from them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import tempfile
+import threading
 import time
 from typing import Optional
-
-import torch
 
 # ----------------------------------------------------------------- bounds
 
@@ -154,33 +159,120 @@ def format_cost_table(table: dict) -> str:
         f"{r['bound_ms']:.4f} ms ({r['bound_by']})" for k, r in table.items())
 
 
-# ------------------------------------------------------------ wall clock
+# ------------------------------------------------------------------ spans
+
+class Span:
+    """One stretch of the port's work at a layer boundary: its name,
+    start and end (time.perf_counter_ns), the thread it ran on
+    (threading.get_ident(), pthread_self, whose low 32 bits a
+    torch.profiler trace gives the thread of a CUDA call in some runs),
+    its id, its parent's id and its request's id, and its attributes and
+    counts.  Outside
+    recording() only the name, the clock readings and the attributes are
+    set."""
+
+    __slots__ = ("name", "t0", "t1", "tid", "id", "parent", "request",
+                 "attrs")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+        self.t0 = self.t1 = 0
+        self.tid = self.id = self.parent = self.request = None
+
+    @property
+    def seconds(self) -> float:
+        return (self.t1 - self.t0) / 1e9
+
+
+# the list spans are appended to (recording()), or None
+_sink: Optional[list] = None
+_local = threading.local()      # .stack: this thread's open spans
+_ids = itertools.count(1)       # next() holds the interpreter lock
+
+
+def _open() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
 
 @contextlib.contextmanager
-def timed(label: str, sink=None, sync_on: Optional[object] = None):
-    """Wall-clock a block; synchronises `sync_on` (a tensor or a device)
-    before the clock stops, so that asynchronous launches do not fake
-    instant completion."""
-    t0 = time.perf_counter()
-    yield
-    if sync_on is not None:
-        dev = (sync_on.device if isinstance(sync_on, torch.Tensor)
-               else torch.device(sync_on))
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-    dt = time.perf_counter() - t0
-    msg = f"[jpeg2png_tpu] {label}: {dt * 1e3:.2f} ms"
-    (sink or print)(msg)
+def recording():
+    """Record every span that closes inside the block, on any thread;
+    yields the list they are appended to, in the order they close.
+
+        with recording() as spans:
+            cli.main(argv)
+    """
+    global _sink
+    outer, _sink = _sink, []
+    try:
+        yield _sink
+    finally:
+        _sink = outer
 
 
-def solver_rate(n_pixels: int, iterations: int, seconds: float) -> dict:
-    """Normalize a solve timing into the benchmark metrics."""
-    mp_iter = n_pixels * iterations / 1e6 / seconds
-    return {
-        "mp_iter_per_s": round(mp_iter, 1),
-        "seconds": round(seconds, 4),
-        "us_per_iteration": round(seconds / iterations * 1e6, 1),
-    }
+@contextlib.contextmanager
+def span(name: str, **attrs):
+    """Time the block (or, as a decorator, each call) as a span named
+    `name` with attributes `attrs`; yields the Span (its clock readings
+    are set once the block ends, also when it raises).  Inside
+    recording() its parent is the innermost span open on this thread
+    (within() hands one to another thread); a span without one starts a
+    request, whose id its descendants carry.  Outside recording() nothing
+    is kept: the span costs its object, its two clock readings and one
+    check."""
+    sp = Span(name, attrs)
+    sink = _sink
+    if sink is None:
+        sp.t0 = time.perf_counter_ns()
+        try:
+            yield sp
+        finally:
+            sp.t1 = time.perf_counter_ns()
+        return
+    stack = _open()
+    up = stack[-1] if stack else None
+    sp.id = next(_ids)
+    sp.parent, sp.request = (up.id, up.request) if up else (None, sp.id)
+    sp.tid = threading.get_ident()
+    stack.append(sp)
+    sp.t0 = time.perf_counter_ns()
+    try:
+        yield sp
+    finally:
+        sp.t1 = time.perf_counter_ns()
+        stack.pop()
+        sink.append(sp)
+
+
+def current() -> Optional[Span]:
+    """The innermost span open on this thread inside recording(), or
+    None: the parent to hand to work another thread runs (within())."""
+    stack = getattr(_local, "stack", None)
+    return stack[-1] if stack else None
+
+
+@contextlib.contextmanager
+def within(parent: Optional[Span]):
+    """Open the block's spans on this thread as children of `parent`, a
+    span open on another thread (current() there): work handed to a pool
+    names the span that handed it over."""
+    if parent is None or _sink is None:
+        yield
+        return
+    stack = _open()
+    stack.append(parent)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def count(sp: Span, name: str, n) -> None:
+    """Add `n` to the count `name` of the open span `sp`."""
+    sp.attrs[name] = sp.attrs.get(name, 0) + n
 
 
 # ----------------------------------------------------------------- traces
@@ -257,6 +349,7 @@ def device_trace(logdir, device="cuda", host=True):
             run_solve(...)
         trace_breakdown(prof, iterations)
     """
+    import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     dev = torch.device(device)

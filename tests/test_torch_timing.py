@@ -1,5 +1,4 @@
-"""utils/timing.py and the wall-clock helpers of utils/profiling.py
-against the JAX package's (jpeg2png_tpu/utils/timing.py, profiling.py).
+"""utils/timing.py against the JAX package's (jpeg2png_tpu/utils/timing.py).
 
 marginal_rate is the method of every port benchmark: it must give the
 JAX estimator's number on tests/test_timing.py's fake timers (median of
@@ -17,10 +16,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from jpeg2png_tpu.utils import profiling as jax_profiling  # noqa: E402
 from jpeg2png_tpu.utils import timing as jax_timing  # noqa: E402
 from jpeg2png_tpu_torch.kernels import _build  # noqa: E402
-from jpeg2png_tpu_torch.utils import profiling, timing  # noqa: E402
+from jpeg2png_tpu_torch.utils import timing  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -61,12 +59,6 @@ def test_torch_synth_coefs_matches_jax(seed):
     for a, b in zip(ours[0] + ours[1], theirs[0] + theirs[1]):
         assert a.dtype == b.dtype and np.array_equal(a, b)
     assert ours[2] == theirs[2]
-
-
-@pytest.mark.parametrize("args", [(512 * 512, 1000, 0.3),
-                                  (6291456, 50, 0.04)])
-def test_torch_solver_rate_matches_jax(args):
-    assert profiling.solver_rate(*args) == jax_profiling.solver_rate(*args)
 
 
 def test_torch_joint_and_striped_timers_on_cpu():
@@ -113,14 +105,3 @@ def test_torch_mixed_batch_bench_on_cpu(tmp_path):
     # minted once: both passes read the same files
     files = sorted(p.name for p in (tmp_path / "corpus").iterdir())
     assert len(files) == 4
-
-
-@pytest.mark.parametrize("sync_on", [None, "cpu", "tensor"])
-def test_torch_timed_reports_through_the_sink(sync_on):
-    x = torch.ones(8)
-    lines = []
-    with profiling.timed("block", sink=lines.append,
-                         sync_on=x if sync_on == "tensor" else sync_on):
-        x.sum()
-    assert len(lines) == 1 and lines[0].startswith("[jpeg2png_tpu] block: ")
-    assert lines[0].endswith(" ms")
