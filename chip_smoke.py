@@ -54,9 +54,10 @@ non-zero exit and no result line):
      states, beside the bound and the per-iteration streaming figure) and
      the solver's set-up at photo512; the tier sweep: every tier at 0.26,
      1.23, 3.15, 6.29 and 8.0 MP (the numbers that set the rule's gates);
-     the PNG writer on the decode's pixels: the encode split into its
-     filter (csrc/png_filter.c) and its deflate, the bytes, and in turns
-     the filter-0 encode the port wrote before (bytes and seconds);
+     the PNG writer on the decode's pixels: the encode (row strips on the
+     writer's pool), in turns with libpng's one stream split into its
+     filter (csrc/png_filter.c) and its deflate, the bytes of both, and in
+     turns the filter-0 encode the port wrote before (bytes and seconds);
   7. serving: cli.main --tpu-batch on the 48-file corpus
      (tests/fixtures/torch_serving), with the committed gates and with
      gates that give every class work: the launch count of each kernel
@@ -1749,12 +1750,15 @@ def _patched_plain(module):
 
 
 def _png_writer_split(pix, written: bytes, card: str, reps: int = 3):
-    """The PNG writer on the decode's pixels: the whole encode, its filter
-    (csrc/png_filter.c) and its deflate, medians of `reps` runs, and the
-    bytes; beside them, in turns, the filter-0 encode the port wrote before
-    libpng's filters (filter type 0 on every row, zlib.compress level 6),
-    built here as a measurement.  The CLI's file must be the encode's
-    bytes, and both encodes must give the pixels back."""
+    """The PNG writer on the decode's pixels: the whole encode (row strips
+    filtered and deflated on the writer's pool of threads), and in turns
+    libpng's one stream on the same pixels, its filter (csrc/png_filter.c)
+    and its deflate (`deflate_rows`, one thread), medians of `reps` runs,
+    and the bytes of both streams; beside them, in turns, the filter-0
+    encode the port wrote before libpng's filters (filter type 0 on every
+    row, zlib.compress level 6), built here as a measurement.  The CLI's
+    file must be the encode's bytes, both streams must inflate to the same
+    filtered rows, and both encodes must give the pixels back."""
     import statistics
     import struct
     import zlib
@@ -1784,27 +1788,37 @@ def _png_writer_split(pix, written: bytes, card: str, reps: int = 3):
         filtered = png_writer.filter_rows(rows, bpp)
         times["filter"].append(time.perf_counter() - t0)
         t0 = time.perf_counter()
-        png_writer.deflate_rows(filtered, bpp)
+        single = png_writer.deflate_rows(filtered, bpp)
         times["deflate"].append(time.perf_counter() - t0)
         t0 = time.perf_counter()
         old = old_encode()
         times["old"].append(time.perf_counter() - t0)
     require(data == written, "the CLI's PNG is not encode_png's bytes")
+    stream, strips = png_writer.strip_stream(rows, bpp)
+    require(zlib.decompress(stream) == zlib.decompress(single)
+            == filtered.tobytes(),
+            "the strip stream does not inflate to the filtered rows")
     require(np.array_equal(unfilter_png(data), pix)
             and np.array_equal(unfilter_png(old), pix),
             "a PNG encode does not give the pixels back")
     med = {k: statistics.median(v) for k, v in times.items()}
+    one = med["filter"] + med["deflate"]
     filters = np.bincount(filtered[:, 0], minlength=5).tolist()
-    log(f"  PNG writer at {h}x{w} RGB8 (medians of {reps}): encode "
-        f"{med['encode']:.4f} s = filter {med['filter']:.4f} s + deflate "
-        f"{med['deflate']:.4f} s (+ packing, chunks), {len(data)} bytes; "
-        f"rows by filter None/Sub/Up/Average/Paeth {filters}; the filter-0 "
-        f"encode, same pixels, in turns: {med['old']:.4f} s, {len(old)} "
-        f"bytes ({len(old) / len(data):.3f}x)  [{card}]")
-    return {"encode_s": med["encode"], "filter_s": med["filter"],
-            "deflate_s": med["deflate"], "bytes": len(data),
-            "filter0_s": med["old"], "filter0_bytes": len(old),
-            "rows_by_filter": filters}
+    log(f"  PNG writer at {h}x{w} RGB8 (medians of {reps}, in turns): "
+        f"encode {med['encode']:.4f} s in {strips} strips on a host of "
+        f"{len(os.sched_getaffinity(0))} cores, stream {len(stream)} bytes, "
+        f"file {len(data)}; libpng's one stream: filter {med['filter']:.4f}"
+        f" s + deflate {med['deflate']:.4f} s = {one:.4f} s "
+        f"({one / med['encode']:.2f}x the encode), {len(single)} bytes "
+        f"(strips {len(stream) / len(single):.5f}x); rows by filter "
+        f"None/Sub/Up/Average/Paeth {filters}; the filter-0 encode: "
+        f"{med['old']:.4f} s, {len(old)} bytes "
+        f"({len(old) / len(data):.3f}x)  [{card}]")
+    return {"encode_s": med["encode"], "strips": strips,
+            "stream_bytes": len(stream), "filter_s": med["filter"],
+            "deflate_s": med["deflate"], "single_bytes": len(single),
+            "bytes": len(data), "filter0_s": med["old"],
+            "filter0_bytes": len(old), "rows_by_filter": filters}
 
 
 def phase_main_path(card: str, errs):

@@ -8,7 +8,9 @@
  * Replaces the filtering that the JAX package leaves to libpng
  * (jpeg2png_tpu/native/pngio.c: png_write_image with libpng's defaults).
  * io/png_writer.py deflates the result with zlib's settings of libpng's
- * png_deflate_claim, so the file is byte for byte libpng's.
+ * png_deflate_claim, so the file of an image of up to 128 KiB of filtered
+ * rows is byte for byte libpng's; a larger one is filtered and deflated in
+ * row strips on several threads (j2p_png_filter_rows).
  *
  * The heuristic is png_write_find_filter (pngwutil.c) for bit depths >= 8
  * with PNG_ALL_FILTERS:
@@ -121,12 +123,19 @@ static void filter_row(int f, const uint8_t *row, const uint8_t *prev,
     }
 }
 
-/* Filters the h rows of `raw` (row_bytes each) into `out`, h x (1 +
- * row_bytes) bytes: each row's filter type, then its filtered bytes.
- * Returns 0, or E_ARGS for a geometry that is not whole pixels. */
-int j2p_png_filter(const uint8_t *raw, int64_t h, int64_t row_bytes,
-                   int32_t bpp, uint8_t *out) {
-    if (h < 1 || bpp < 1 || row_bytes < bpp || row_bytes % bpp != 0)
+/* Filters rows [y0, y1) of the h rows of `raw` (row_bytes each) into
+ * `out`, (y1 - y0) x (1 + row_bytes) bytes: each row's filter type, then
+ * its filtered bytes.  Row y0 - 1 of `raw` is the row above row y0 (none
+ * above row 0), and the filters tried follow the whole image's h and
+ * row_bytes, as png_write_start_row narrows them, so any split of [0, h)
+ * gives the bytes of one call over [0, h) (io/png_writer.filter_rows):
+ * png_writer.py filters a large image's row strips on several threads.
+ * Returns 0, or E_ARGS for
+ * a geometry that is not whole pixels or rows outside [0, h). */
+int j2p_png_filter_rows(const uint8_t *raw, int64_t h, int64_t row_bytes,
+                        int32_t bpp, int64_t y0, int64_t y1, uint8_t *out) {
+    if (h < 1 || bpp < 1 || row_bytes < bpp || row_bytes % bpp != 0
+        || y0 < 0 || y1 > h || y0 >= y1)
         return E_ARGS;
     int tries[5] = {1, 1, 1, 1, 1};    /* None, Sub, Up, Average, Paeth */
     if (h == 1)
@@ -135,10 +144,10 @@ int j2p_png_filter(const uint8_t *raw, int64_t h, int64_t row_bytes,
         tries[F_SUB] = tries[F_AVG] = tries[F_PAETH] = 0;
     const int only_none = !tries[F_SUB] && !tries[F_UP];
 
-    for (int64_t y = 0; y < h; y++) {
+    for (int64_t y = y0; y < y1; y++) {
         const uint8_t *row = raw + y * row_bytes;
         const uint8_t *prev = y > 0 ? row - row_bytes : NULL;
-        uint8_t *dst = out + y * (row_bytes + 1);
+        uint8_t *dst = out + (y - y0) * (row_bytes + 1);
         int best = F_NONE;
         if (!only_none) {
             uint64_t sums[5];

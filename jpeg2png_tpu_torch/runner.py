@@ -744,10 +744,13 @@ def decode_files_batched(
     and its seconds inside them), solve_s (bucket solves including the
     device-side crop, colour and the pixel fetch), on_pixels_s (seconds
     inside on_pixels, summed over threads) and wall_s (the read pool's
-    start to the last solve's or callback's end).  Each is read from the
-    spans of the call: "read.pool", "solve.pool" (the work items' set-up
-    and the card workers), one "item" per work item, one "on_pixels" per
-    callback (a child of the item that fetched the pixels).
+    start to the last solve's or callback's end), png_strips and
+    png_bytes (the strips and file bytes of the PNGs the callbacks wrote,
+    io/png_writer.py).  Each is read from the spans of the call:
+    "read.pool", "solve.pool" (the work items' set-up and the card
+    workers), one "item" per work item, one "on_pixels" per callback (a
+    child of the item that fetched the pixels), the "png" spans that close
+    inside the callbacks.
     """
     if devices is None:
         resolve_device(device)    # no card: RuntimeError before any read
@@ -802,9 +805,10 @@ def decode_files_batched(
     failed_buckets = set()
 
     def deliver(parent, infile, pix):
-        with profiling.within(parent), profiling.span("on_pixels") as sp:
+        with profiling.within(parent), profiling.collected("png") as pngs, \
+                profiling.span("on_pixels") as sp:
             on_pixels(infile, pix)
-        return sp
+        return sp, pngs
 
     def fail(b, members, e):
         """Bucket b drops out: one error line per member, once."""
@@ -884,10 +888,16 @@ def decode_files_batched(
         devs = dp_degree(len(work), data_parallel, devices, device)
         _run_on_cards([fn for _, fn in work], devs, stats)
     # result() surfaces callback exceptions
-    cb_spans = [job.result() for job in jobs]
+    cb_spans, pngs = [], []
+    for job in jobs:
+        sp, png = job.result()
+        cb_spans.append(sp)
+        pngs += png
     if stats is not None:
         stats["solve_s"] = solve_span.seconds
         stats["on_pixels_s"] = sum(sp.seconds for sp in cb_spans)
+        for key in ("strips", "bytes"):
+            stats[f"png_{key}"] = sum(sp.attrs.get(key, 0) for sp in pngs)
         t_end = max([solve_span.t1] + [sp.t1 for sp in cb_spans])
         stats["wall_s"] = (t_end - read_span.t0) / 1e9
     return out

@@ -14,12 +14,12 @@ JAX package captures XLA device traces.  Here:
   * kernel_cost_table: the bytes and operations each kernel K1-K7 must
     move or do at given shapes, and the least time an H100 could take for
     them (the bounds of chip_smoke.py's kernel records and PERF.md);
-  * span / recording / within / count: the port's spans, one per layer
-    boundary (the CLI call, a file's read, a solve's set-up and loop, the
-    pixel fetch, a PNG write, the runner's read and solve pools, work
-    items and pixel callbacks), on time.perf_counter_ns and the thread's
-    id, kept in memory inside recording() and nowhere else; the runner's
-    stage seconds are read from them.
+  * span / recording / within / count / collected: the port's spans, one
+    per layer boundary (the CLI call, a file's read, a solve's set-up and
+    loop, the pixel fetch, a PNG write, the runner's read and solve pools,
+    work items and pixel callbacks), on time.perf_counter_ns and the
+    thread's id, kept in memory inside recording() and nowhere else; the
+    runner's stage seconds are read from them.
 """
 
 from __future__ import annotations
@@ -186,7 +186,8 @@ class Span:
 
 # the list spans are appended to (recording()), or None
 _sink: Optional[list] = None
-_local = threading.local()      # .stack: this thread's open spans
+_local = threading.local()      # .stack: this thread's open spans;
+                                # .collect: collected()'s (name, list)s
 _ids = itertools.count(1)       # next() holds the interpreter lock
 
 
@@ -231,6 +232,7 @@ def span(name: str, **attrs):
             yield sp
         finally:
             sp.t1 = time.perf_counter_ns()
+            _collect(sp)
         return
     stack = _open()
     up = stack[-1] if stack else None
@@ -245,6 +247,29 @@ def span(name: str, **attrs):
         sp.t1 = time.perf_counter_ns()
         stack.pop()
         sink.append(sp)
+        _collect(sp)
+
+
+def _collect(sp: Span) -> None:
+    for name, got in getattr(_local, "collect", ()):
+        if name == sp.name:
+            got.append(sp)
+
+
+@contextlib.contextmanager
+def collected(name: str):
+    """Yield a list that receives every span named `name` that closes on
+    this thread inside the block, inside recording() or not: the runner
+    reads its stats from the spans of the callbacks it runs."""
+    lists = getattr(_local, "collect", None)
+    if lists is None:
+        lists = _local.collect = []
+    got = []
+    lists.append((name, got))
+    try:
+        yield got
+    finally:
+        lists.pop()
 
 
 def current() -> Optional[Span]:

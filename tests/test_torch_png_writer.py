@@ -1,8 +1,11 @@
 """The port's PNG writer (jpeg2png_tpu_torch/io/png_writer.py on
 csrc/png_filter.c) against the JAX package's native libpng encoder
 (jpeg2png_tpu/native/pngio.c): the same bytes for 8- and 16-bit RGB and
-gray, the C filter equal to its numpy version, and the pixels read back by
-tests/pngdec.py, Pillow and chip_smoke.py's reader."""
+gray up to STRIP_BYTES of filtered rows, and above that, where the writer
+filters and deflates row strips in parallel, the pixels back in at most
+1.005x libpng's bytes, the same bytes for any pool size; the C filter
+equal to its numpy version over any split of the rows, and the pixels read
+back by tests/pngdec.py, Pillow and chip_smoke.py's reader."""
 
 import io
 import pathlib
@@ -71,6 +74,21 @@ def _filter0_png(pix, bits):
             + png_writer._chunk(b"IEND", b""))
 
 
+def _multi_strip(pix, bits):
+    """Whether the writer cuts `pix` into strips."""
+    rows, _ = _rows(pix, bits)
+    return rows.shape[0] * (rows.shape[1] + 1) > png_writer.STRIP_BYTES
+
+
+def _strip_png_ok(got, libpng, pix):
+    """A strip-written PNG: the pixels back, at most 1.005x libpng's
+    bytes."""
+    back = decode_png(got)
+    assert back.dtype == pix.dtype
+    np.testing.assert_array_equal(back, pix)
+    assert len(got) <= 1.005 * len(libpng)
+
+
 def test_torch_png_reference_is_libpng():
     """The comparisons below are against libpng, not the JAX package's
     zlib fallback."""
@@ -84,7 +102,13 @@ def test_torch_png_reference_is_libpng():
 def test_torch_png_equals_libpng(bits, channels, shape, content):
     assert jax_png._pngio is not None
     pix = _pixels(shape + ((3,) if channels == 3 else ()), bits, content)
-    assert encode_png(pix, bits) == jax_png.encode_png(pix, bits)
+    got, libpng = encode_png(pix, bits), jax_png.encode_png(pix, bits)
+    # every (200, 1000) case is over STRIP_BYTES, every other one under
+    assert _multi_strip(pix, bits) == (shape == (200, 1000))
+    if _multi_strip(pix, bits):
+        _strip_png_ok(got, libpng, pix)
+    else:
+        assert got == libpng
 
 
 # (shape, bits, what the case sits on); random gray at seed 7 where the
@@ -123,13 +147,17 @@ def test_torch_png_equals_libpng_at_boundaries(shape, bits, what):
 
 @pytest.mark.parametrize("path", GOLDEN, ids=[p.stem for p in GOLDEN])
 def test_torch_png_golden_pixels_equal_libpng(path):
-    """Every golden's pixels encode to libpng's bytes, in a smaller file
-    than the filter-0 writer's, and read back."""
+    """Every golden's pixels encode to libpng's bytes (in strips above
+    STRIP_BYTES: the pixels back in at most 1.005x its bytes), in a
+    smaller file than the filter-0 writer's."""
     assert jax_png._pngio is not None
     pix = decode_png(path.read_bytes())
     bits = 16 if pix.dtype == np.uint16 else 8
-    got = encode_png(pix, bits)
-    assert got == jax_png.encode_png(pix, bits)
+    got, libpng = encode_png(pix, bits), jax_png.encode_png(pix, bits)
+    if _multi_strip(pix, bits):
+        _strip_png_ok(got, libpng, pix)
+    else:
+        assert got == libpng
     assert len(got) < len(_filter0_png(pix, bits))
 
 
@@ -248,3 +276,222 @@ def test_torch_png_writer_without_compiler_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no-such-cc"):
         encode_png(_pixels((8, 8, 3), 8, "smooth"))
     assert not list((tmp_path / "fresh").glob("*.so"))
+
+
+# ------------------------------------------------------------------ strips
+
+def _split_filter(rows, bpp, cuts):
+    """filter_strip over the strips [cuts[i], cuts[i + 1])."""
+    h, row_bytes = rows.shape
+    out = np.empty((h, row_bytes + 1), np.uint8)
+    for y0, y1 in zip(cuts[:-1], cuts[1:]):
+        png_writer.filter_strip(rows, bpp, y0, y1, out[y0:y1])
+    return out
+
+
+@pytest.mark.parametrize("shape,bpp", [
+    ((1, 40), 1), ((1, 18), 6), ((40, 1), 1), ((57, 3), 3), ((33, 20), 2),
+    ((61, 97), 3), ((200, 60), 6), ((25, 8), 1)],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_torch_png_filter_rows_any_split_equals_whole(shape, bpp):
+    """j2p_png_filter_rows over any split of the rows gives the whole
+    image's filter (the row above from the image, the filters tried from
+    its whole h and width): one-row and one-pixel-wide images too, and a
+    strip a row."""
+    h, w = shape
+    rng = np.random.default_rng(h * 1000 + w)
+    for content in ("random", "smooth"):
+        rows = np.ascontiguousarray(_pixels((h, w * bpp), 8, content, bpp))
+        whole = png_writer.filter_rows(rows, bpp)
+        np.testing.assert_array_equal(whole,
+                                      png_writer.filter_rows_plain(rows, bpp))
+        splits = [[0, h], list(range(h + 1))]
+        for _ in range(4):
+            inner = sorted(rng.choice(np.arange(1, h), min(h - 1, 5),
+                                      replace=False).tolist()) if h > 1 else []
+            splits.append([0] + inner + [h])
+        for cuts in splits:
+            np.testing.assert_array_equal(_split_filter(rows, bpp, cuts),
+                                          whole, err_msg=str(cuts))
+
+
+def test_torch_png_filter_rows_refuses_rows_outside():
+    """Rows outside [0, h), an empty or reversed range, and an output of
+    the wrong size are refused before the C filter writes anything."""
+    rows = np.zeros((4, 6), np.uint8)
+    for y0, y1, out_rows in ((0, 5, 5), (-1, 2, 3), (2, 2, 0), (3, 1, 0),
+                             (0, 2, 3)):
+        out = np.empty((out_rows, 7), np.uint8)
+        with pytest.raises(ValueError, match="bad geometry"):
+            png_writer.filter_strip(rows, 3, y0, y1, out)
+    with pytest.raises(ValueError, match="C-contiguous uint8"):
+        png_writer.filter_strip(rows, 3, 0, 2, np.empty((7, 2), np.uint8).T)
+
+
+def _edge_cases():
+    """(shape, bits, what): images at the strip edges, 8- and 16-bit RGB
+    and gray.  8-bit rows of 128 or 256 filtered bytes make STRIP_BYTES
+    exactly; 16-bit rows have an odd filtered length, so their edge is the
+    largest h at or under STRIP_BYTES."""
+    out = []
+    for shape_w, bits, ch in ((127, 8, 1), (85, 8, 3), (150, 16, 1),
+                              (70, 16, 3)):
+        row = shape_w * ch * bits // 8 + 1
+        n = png_writer.strip_rows(1, row - 1)
+        at = png_writer.STRIP_BYTES // row
+        tail = (shape_w, 3) if ch == 3 else (shape_w,)
+        name = f"{'rgb' if ch == 3 else 'gray'}{bits}"
+        out += [((at,) + tail, bits, f"{name} at STRIP_BYTES"),
+                ((at + 1,) + tail, bits, f"{name} one row over"),
+                ((3 * n + 1,) + tail, bits, f"{name} last strip one row")]
+    return out
+
+
+EDGES = _edge_cases()
+
+
+@pytest.mark.parametrize("shape,bits,what", EDGES,
+                         ids=[e[2] for e in EDGES])
+def test_torch_png_strip_edges_read_back(shape, bits, what):
+    """At STRIP_BYTES the writer is libpng's one stream; a row over, the
+    strip path begins; the last strip may hold one row.  tests/pngdec.py,
+    Pillow (not 16-bit RGB) and chip_smoke.py's reader give the pixels
+    back."""
+    from PIL import Image
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    h = shape[0]
+    for content in ("random", "smooth"):
+        pix = _pixels(shape, bits, content)
+        data, strips = png_writer._encode(pix, bits)
+        rows, _ = _rows(pix, bits)
+        size = h * (rows.shape[1] + 1)
+        n = png_writer.strip_rows(h, rows.shape[1])
+        # one strip, on either path, is libpng's one stream
+        assert strips == (1 if size <= png_writer.STRIP_BYTES
+                          else -(-h // n))
+        assert (data == jax_png.encode_png(pix, bits)) == (strips == 1)
+        if what.endswith("at STRIP_BYTES") and bits == 8:
+            assert size == png_writer.STRIP_BYTES
+        if what.endswith("one row over"):
+            # 8 bits: a strip of STRIP_BYTES and one of a row; 16 bits:
+            # the one strip of ceil(STRIP_BYTES / row) rows
+            assert strips == (2 if bits == 8 else 1)
+        if what.endswith("last strip one row"):
+            assert h % n == 1 and strips == 4
+        np.testing.assert_array_equal(decode_png(data), pix)
+        np.testing.assert_array_equal(chip_smoke.unfilter_png(data), pix)
+        if not (bits == 16 and len(shape) == 3):
+            np.testing.assert_array_equal(
+                np.asarray(Image.open(io.BytesIO(data))), pix)
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_torch_png_strip_stream_is_the_filtered_rows(bits):
+    """The joined IDATs inflate to the filtered rows, with zlib's header
+    and the Adler-32 of all of them; each strip's piece ends on a byte."""
+    pix = _pixels((500, 200, 3), bits, "smooth")
+    rows, bpp = _rows(pix, bits)
+    data, strips = png_writer._encode(pix, bits)
+    assert strips > 2
+    stream = b"".join(p for tag, p in _chunks(data) if tag == b"IDAT")
+    filtered = png_writer.filter_rows(rows, bpp)
+    assert zlib.decompress(stream) == filtered.tobytes()
+    assert stream[:2] == png_writer.ZLIB_HEADER
+    assert struct.unpack(">I", stream[-4:])[0] == zlib.adler32(filtered)
+    # the header is the one libpng's settings write for a 32 KiB window
+    comp = zlib.compressobj(6, zlib.DEFLATED, 15, 8, zlib.Z_FILTERED)
+    assert (comp.compress(b"x") + comp.flush())[:2] == png_writer.ZLIB_HEADER
+
+
+def test_torch_png_adler32_combine():
+    rng = np.random.default_rng(5)
+    for n1, n2 in ((0, 0), (0, 7), (9, 0), (1, 65521), (70000, 131073),
+                   (65520, 65522)):
+        a = rng.integers(0, 256, n1, dtype=np.uint8).tobytes()
+        b = rng.integers(0, 256, n2, dtype=np.uint8).tobytes()
+        assert png_writer.adler32_combine(
+            zlib.adler32(a), zlib.adler32(b), n2) == zlib.adler32(a + b)
+    b = b"\xff" * 200000
+    assert png_writer.adler32_combine(zlib.adler32(b), zlib.adler32(b),
+                                      len(b)) == zlib.adler32(b + b)
+
+
+@pytest.mark.parametrize("workers", [1, 3])
+def test_torch_png_strips_same_bytes_on_any_pool(workers, monkeypatch):
+    """The strips follow the image's shape alone: a pool of 1 or 3
+    workers writes the bytes of the process-wide pool."""
+    import concurrent.futures
+
+    cases = [(_pixels((400, 300, 3), 8, "random"), 8),
+             (_pixels((1100, 129), 16, "smooth"), 16),
+             (_pixels((140000, 1), 8, "random"), 8),
+             (_pixels((40000, 1, 3), 16, "smooth"), 16)]
+    want = [encode_png(p, b) for p, b in cases]
+    # every case in strips, the one-pixel-wide ones too
+    assert all(png_writer._encode(p, b)[1] >= 3 for p, b in cases)
+    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        monkeypatch.setattr(png_writer, "_strip_pool", lambda: pool)
+        got = [encode_png(p, b) for p, b in cases]
+    assert got == want
+
+
+def test_torch_png_strips_from_many_threads_at_once():
+    """More callers than cores encode on the one shared pool at once (as
+    the runner's PNG threads do), the interpreter switching threads often:
+    every file is its serial bytes, and every caller finishes."""
+    import concurrent.futures
+    import os
+
+    cases = [(_pixels((300 + 7 * i, 150 + i, 3), 8, "random", i), 8)
+             for i in range(4)]
+    want = [encode_png(p, b) for p, b in cases]
+    callers = 2 * len(os.sched_getaffinity(0)) + 1
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(callers) as pool:
+            jobs = [pool.submit(encode_png, *cases[k % len(cases)])
+                    for k in range(3 * callers)]
+            done, pending = concurrent.futures.wait(jobs, timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not pending
+    for k, job in enumerate(jobs):
+        assert job.result() == want[k % len(cases)]
+
+
+@pytest.mark.parametrize("size", [(1536, 1024), (3264, 2448)],
+                         ids=["1536x1024", "3264x2448"])
+def test_torch_png_strips_cost_at_most_half_a_percent(size):
+    """Photo-class content (utils/corpus.synth_image) in strips: at most
+    1.005x the bytes of libpng's one stream on the same filtered rows."""
+    from jpeg2png_tpu_torch.utils.corpus import synth_image
+
+    w, h = size
+    pix = synth_image(w, h, 7)
+    rows, bpp = _rows(pix, 8)
+    single = png_writer.deflate_rows(png_writer.filter_rows(rows, bpp), bpp)
+    stream, strips = png_writer.strip_stream(rows, bpp)
+    assert strips == -(-h // png_writer.strip_rows(h, rows.shape[1]))
+    assert zlib.decompress(stream) == zlib.decompress(single)
+    assert len(single) < len(stream) <= 1.005 * len(single)
+
+
+def test_torch_png_span_counts_strips_and_bytes(tmp_path):
+    """write_png's "png" span counts its stream's strips (1 on libpng's one
+    stream) and the file's bytes."""
+    from jpeg2png_tpu_torch.utils import profiling
+
+    for shape, strips in (((40, 30, 3), 1), ((300, 200, 3), None)):
+        pix = _pixels(shape, 8, "smooth")
+        path = tmp_path / "out.png"
+        with profiling.recording() as spans:
+            png_writer.write_png(path, pix)
+        (sp,) = spans
+        want = png_writer._encode(pix, 8)[1]
+        assert want == (strips or want) and (strips or want > 1)
+        assert sp.name == "png"
+        assert sp.attrs == {"strips": want, "bytes": path.stat().st_size}

@@ -4,6 +4,8 @@ kept outside recording(); the spans of one per-file and one --tpu-batch
 cli call; and the runner's stage seconds read from its spans."""
 
 import concurrent.futures
+import contextlib
+import os
 import threading
 
 import pytest
@@ -93,6 +95,31 @@ def test_nothing_is_kept_outside_recording():
     assert spans == []
 
 
+def test_collected_gathers_spans_by_name_recording_or_not():
+    """collected(name): the spans of that name that close on this thread
+    inside the block, nested blocks each their own, none from another
+    thread."""
+
+    def other():
+        with profiling.span("png"):
+            pass
+
+    for rec in (False, True):
+        with (profiling.recording() if rec else contextlib.nullcontext()):
+            with profiling.collected("png") as outer:
+                with profiling.span("png") as a, profiling.span("read"):
+                    pass
+                with profiling.collected("png") as inner:
+                    with profiling.span("png") as b:
+                        pass
+                t = threading.Thread(target=other)
+                t.start()
+                t.join(timeout=30)
+            with profiling.span("png"):
+                pass
+        assert outer == [a, b] and inner == [b], rec
+
+
 def test_spans_carry_their_thread_ids():
     """pthread_self, whose low 32 bits a profiler trace gives the thread
     of a CUDA call in some runs."""
@@ -149,10 +176,14 @@ def test_cli_per_file_call_spans(fixtures_dir, tmp_path):
         (sp,) = named[name]
         assert sp.parent == main.id and _inside(sp, main), name
     assert {s.request for s in spans} == {main.id}
-    # the fetch's count is the one attribute a per-file call records
+    # the fetch's and the PNG's counts are the attributes a per-file call
+    # records
     img = read_jpeg(src)
     assert named["fetch"][0].attrs == {"bytes": 12 * img.width * img.height}
-    assert all(s.attrs == {} for s in spans if s.name != "fetch")
+    assert named["png"][0].attrs == {"strips": 1,
+                                     "bytes": out.stat().st_size}
+    assert all(s.attrs == {} for s in spans
+               if s.name not in ("fetch", "png"))
     # the stages in the order a file passes them
     order = sorted((named[n][0] for n in ("read", "solve.setup",
                                           "solve.loop", "fetch", "png")),
@@ -190,6 +221,10 @@ def test_cli_batch_call_spans(fixtures_dir, tmp_path):
         cb = by_id[png.parent]
         assert cb.name == "on_pixels" and by_id[cb.parent].name == "item"
         assert _inside(png, cb)
+    # the runner's PNG stats are the sums of the png spans' counts
+    assert stats["png_bytes"] == sum(os.path.getsize(o) for o in outs)
+    assert stats["png_bytes"] == sum(p.attrs["bytes"] for p in pngs)
+    assert stats["png_strips"] == sum(p.attrs["strips"] for p in pngs) == 3
     fetched = sorted(s.attrs["bytes"] for s in named["fetch"])
     want = []
     for i in ins:
@@ -238,7 +273,23 @@ def test_runner_stats_are_sums_of_its_spans(fixtures_dir):
     for key in ("read_s", "solve_s", "wall_s"):
         assert quiet[key] > 0
     assert quiet["card_items"] == [sum(quiet["card_items"])]
+    # a callback that writes no PNG: no strips, no bytes
+    assert stats["png_strips"] == stats["png_bytes"] == 0
     assert "bucket_sizes" not in quiet and "bucket_sizes" not in stats
+
+
+def test_cli_batch_png_stats_outside_recording(fixtures_dir, tmp_path):
+    """The runner reads its PNG stats from the png spans without
+    recording(), as the benchmark's calls run."""
+    ins = [str(fixtures_dir / f"{n}.jpg") for n in RGB[:2]]
+    outs = [str(tmp_path / f"{n}.png") for n in RGB[:2]]
+    argv = ["--tpu-batch", "--device", "cpu", "-i", "2", "-q"]
+    for o in outs:
+        argv += ["-o", o]
+    stats = {}
+    assert cli.main(argv + ins, stats=stats) == 0
+    assert stats["png_bytes"] == sum(os.path.getsize(o) for o in outs) > 0
+    assert stats["png_strips"] == 2
 
 
 def test_cli_per_file_threads_keep_one_request(fixtures_dir, tmp_path):
