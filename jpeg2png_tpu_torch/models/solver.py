@@ -257,8 +257,22 @@ def _geometry(datas, samps):
                  for d, (sy, sx) in zip(datas, samps))
 
 
+def _upload(x, span, **kw) -> torch.Tensor:
+    """torch.as_tensor(x, **kw); where x is not already a tensor on that
+    device, counts its bytes on the device into `span`'s "bytes"."""
+    t = torch.as_tensor(x, **kw)
+    if span is not None and not (isinstance(x, torch.Tensor)
+                                 and x.device == t.device):
+        profiling.count(span, "bytes", t.nbytes)
+    return t
+
+
 def _build_problem(datas, quants, samps, weight, pweights, iterations,
-                   simd_compat_logging, device) -> _Problem:
+                   simd_compat_logging, device, span=None) -> _Problem:
+    """The device constants of a solve.  `span` (the "solve.setup" span)
+    counts the bytes of the coefficients and quantisation tables uploaded
+    from the host; the upsampling's index vectors (8 (H + W) bytes a
+    channel) and the cached transform matrices are left out."""
     geoms = _geometry(datas, samps)
     H, W = canvas_shape(geoms)
     for g in geoms:
@@ -274,9 +288,9 @@ def _build_problem(datas, quants, samps, weight, pweights, iterations,
         # coefficient (u,v) of block (by,bx) lives at (8by+u, 8bx+v)
         # numpy arrays, or tensors already on the device (utils/timing.py
         # uploads once for its timed solves)
-        q_r = torch.as_tensor(q, dtype=torch.float32, device=device)
+        q_r = _upload(q, span, dtype=torch.float32, device=device)
         q_r = q_r.tile(g.nby, g.nbx)
-        data_i16 = deblockify(torch.as_tensor(d, device=device))
+        data_i16 = deblockify(_upload(d, span, device=device))
         data_r = data_i16.to(torch.float32)
         dq = data_r * q_r
         iq = 1.0 / q_r
@@ -557,19 +571,22 @@ def solve_steps(datas, quants, samps, weight, pweights, iterations,
     lite tiers share theirs, so either resumes the other's carry).
 
     Returns (fdata [C, H, W] tensor, metrics [nsteps, 4] numpy, carry).
-    The set-up and the loop are the "solve.setup" and "solve.loop" spans.
+    The set-up and the loop are the "solve.setup" and "solve.loop" spans:
+    the set-up counts the host -> device "bytes" of _build_problem's
+    uploads (_initial_carry uploads nothing: its state is made on the
+    device), the loop carries the solve's "tier".
     """
     device = resolve_device(device)
-    with profiling.span("solve.setup"):
+    with profiling.span("solve.setup") as sp:
         prob = _build_problem(datas, quants, samps, weight, pweights,
-                              iterations, simd_compat_logging, device)
+                              iterations, simd_compat_logging, device, sp)
         tier = _resolve_tier(prob, tier, pweights)
         if carry is None:
             carry = _initial_carry(prob, tier)
         elif _carry_format(carry) != _CARRY_FORMAT[tier]:
             raise ValueError(f"a {_carry_format(carry)!r}-format carry "
                              f"cannot resume a {tier!r}-tier solve")
-    with profiling.span("solve.loop"):
+    with profiling.span("solve.loop", tier=tier):
         carry, metrics = _run(prob, carry, iterations if nsteps is None
                               else nsteps, tier)
     return carry[0], metrics, carry
@@ -623,14 +640,14 @@ def solve_joint_chunked(
     device = resolve_device(device)
     if chunk is None:
         chunk = max(8, min(50, iterations // 20 or iterations))
-    with profiling.span("solve.setup"):
+    with profiling.span("solve.setup") as sp:
         prob = _build_problem(datas, quants, samps, weight, pweights,
-                              iterations, simd_compat_logging, device)
+                              iterations, simd_compat_logging, device, sp)
         tier = _resolve_tier(prob, tier, pweights)
         carry = _initial_carry(prob, tier)
     all_metrics = []
     done = 0
-    with profiling.span("solve.loop"):
+    with profiling.span("solve.loop", tier=tier):
         while done < iterations:
             n = min(chunk, iterations - done)
             carry, metrics = _run(prob, carry, n, tier)

@@ -182,8 +182,12 @@ def test_cli_per_file_call_spans(fixtures_dir, tmp_path):
     assert named["fetch"][0].attrs == {"bytes": 12 * img.width * img.height}
     assert named["png"][0].attrs == {"strips": 1,
                                      "bytes": out.stat().st_size}
-    assert all(s.attrs == {} for s in spans
-               if s.name not in ("fetch", "png"))
+    # the set-up's uploads (coefficients and quant tables) and the tier
+    assert named["solve.setup"][0].attrs == {
+        "bytes": sum(p.data.nbytes + 64 * 4 for p in img.planes)}
+    assert named["solve.loop"][0].attrs == {"tier": "mega"}
+    assert all(s.attrs == {} for s in spans if s.name not in (
+        "fetch", "png", "solve.setup", "solve.loop"))
     # the stages in the order a file passes them
     order = sorted((named[n][0] for n in ("read", "solve.setup",
                                           "solve.loop", "fetch", "png")),
