@@ -1720,7 +1720,9 @@ def phase_tier_sweep(card: str):
 
 def _patched_plain(module):
     """Point the kernel names `module` holds (the solver's, the striped
-    solver's) at the plain versions (and back)."""
+    solver's) at the plain versions (and back); the solver's two tier then
+    runs its iterations eagerly (the plain versions copy host indices,
+    which a CUDA graph cannot capture)."""
     from jpeg2png_tpu_torch.kernels import (grad_step, iter_step,
                                             project_step, stripe_grad)
 
@@ -1735,6 +1737,8 @@ def _patched_plain(module):
              "fused_grad_striped": stripe_grad.fused_grad_striped_plain,
              "fused_project": project_step.fused_project_plain}
     names = {n: fn for n, fn in names.items() if hasattr(module, n)}
+    if hasattr(module, "_replays"):
+        names["_replays"] = lambda device: False
 
     @contextlib.contextmanager
     def cm():

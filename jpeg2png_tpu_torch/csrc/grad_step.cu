@@ -14,6 +14,13 @@
 //   extrap = e on the band's own rows
 //   part   = per block: sum(grad^2) per channel, sum |g|, sum |G|
 //
+// factor is a host float, or (K1 in the two tier's captured iteration,
+// models/solver.py) read on the device as factors[*it]: an f32 table of
+// the solve's FISTA factors and an int64 iteration index (int64 as
+// PyTorch's index ops take it), so one captured CUDA graph replays every
+// iteration.  The table holds the same f32 values
+// the host float would carry, so the arithmetic is the same either way.
+//
 // K1 is the whole canvas as one band (row0 = 0, no halos).  K7 is a band of
 // the row-striped solve: the two rows the stencil reaches past either band
 // edge come from halo arrays [C, 2, W] of f and fista (the neighbouring
@@ -102,6 +109,8 @@ struct Params {
   float* grad;
   float* extrap;
   float* part;          // [strips * segments, C + 2]
+  const float* factors; // the factor table, or null: `factor` holds it
+  const long long* it;  // index into `factors`
   int L, W, row0, HT, WT, seg, P;
   float factor, alpha, alpha2;
   int pidx[MAXC];       // prob plane of channel c, -1 when off
@@ -201,6 +210,7 @@ __global__ void __launch_bounds__(NT) grad_kernel(Params p) {
   // only copies rows: no term, e or gather of its columns is read
   const bool live = x0 - 1 + (tid & ~31) < W;
   const int a0 = x0 >= 2 ? (x0 - 2) & ~3 : -4;   // first staged column
+  const float factor = p.factors != nullptr ? p.factors[*p.it] : p.factor;
   const int off = x0 - 2 - a0;               // e ring column 0 in a stage
 
   // this thread's 16-byte chunks of a staged row, fixed: plane, column,
@@ -257,7 +267,7 @@ __global__ void __launch_bounds__(NT) grad_kernel(Params p) {
       for (int c = 0; c < C; ++c) {
         const float fv = fs[c * SWID + jj + off];
         const float fiv = fs[(C + c) * SWID + jj + off];
-        er[c * EWID + jj] = fv + p.factor * (fv - fiv);
+        er[c * EWID + jj] = fv + factor * (fv - fiv);
       }
     };
     one(j);
@@ -526,6 +536,8 @@ int run(Params& p, int C, int tgv, float* out, cudaStream_t s) {
     if (p.pidx[c] >= 0) ++p.P;
   }
   if (p.P > 0 && p.pgrad == nullptr) return (int)cudaErrorInvalidValue;
+  if ((p.factors == nullptr) != (p.it == nullptr))
+    return (int)cudaErrorInvalidValue;
   int slots = 0;
   cudaError_t err = slots_for(C, tgv, &slots);
   if (err != cudaSuccess) return (int)err;
@@ -584,18 +596,22 @@ int j2p_grad_segment_rows(int C, int tgv, int L, int W) {
 // [C, 2, W] halo rows of f and fista just above / below the band, null for
 // zeros (the canvas edge).  W % 4 == 0; f, fista and the halos 16-byte
 // aligned.  part: [j2p_grad_partial_rows(C, tgv, L, W), C + 2] scratch;
-// out: [C + 2] = the band's (sum grad^2 per channel, tv, tv2).  alpha =
+// out: [C + 2] = the band's (sum grad^2 per channel, tv, tv2).  factors,
+// it: null for the host float `factor`, else the FISTA factor is read on
+// the device as factors[*it] (f32 table, int64 index).  alpha =
 // 1/sqrt(C) and alpha2 = (weight/sqrt(2))/sqrt(C) come from the caller,
 // rounded once to f32 as the plain version rounds them; tgv = 0 skips the
 // second-order term.  Returns the first CUDA error, else 0.
-int j2p_fused_grad_striped(const float* f, const float* fista,
-                           const float* ftop, const float* fbot,
-                           const float* fitop, const float* fibot,
-                           const float* pgrad, float* grad, float* extrap,
-                           float* part, float* out, int C, int L, int W,
-                           int row0, int h_true, int w_true, float factor,
-                           float alpha, float alpha2, int tgv, int pidx0,
-                           int pidx1, int pidx2, int pidx3, void* stream) {
+int j2p_fused_grad_table(const float* f, const float* fista,
+                         const float* ftop, const float* fbot,
+                         const float* fitop, const float* fibot,
+                         const float* pgrad, float* grad, float* extrap,
+                         float* part, float* out, int C, int L, int W,
+                         int row0, int h_true, int w_true, float factor,
+                         const float* factors, const long long* it,
+                         float alpha,
+                         float alpha2, int tgv, int pidx0, int pidx1,
+                         int pidx2, int pidx3, void* stream) {
   Params p;
   p.f = f;
   p.fista = fista;
@@ -607,6 +623,8 @@ int j2p_fused_grad_striped(const float* f, const float* fista,
   p.grad = grad;
   p.extrap = extrap;
   p.part = part;
+  p.factors = factors;
+  p.it = it;
   p.L = L;
   p.W = W;
   p.row0 = row0;
@@ -622,6 +640,21 @@ int j2p_fused_grad_striped(const float* f, const float* fista,
   p.pidx[2] = pidx2;
   p.pidx[3] = pidx3;
   return run(p, C, tgv, out, (cudaStream_t)stream);
+}
+
+// The same with the factor a host float (no table).
+int j2p_fused_grad_striped(const float* f, const float* fista,
+                           const float* ftop, const float* fbot,
+                           const float* fitop, const float* fibot,
+                           const float* pgrad, float* grad, float* extrap,
+                           float* part, float* out, int C, int L, int W,
+                           int row0, int h_true, int w_true, float factor,
+                           float alpha, float alpha2, int tgv, int pidx0,
+                           int pidx1, int pidx2, int pidx3, void* stream) {
+  return j2p_fused_grad_table(f, fista, ftop, fbot, fitop, fibot, pgrad, grad,
+                              extrap, part, out, C, L, W, row0, h_true,
+                              w_true, factor, nullptr, nullptr, alpha, alpha2,
+                              tgv, pidx0, pidx1, pidx2, pidx3, stream);
 }
 
 }  // extern "C"

@@ -125,8 +125,9 @@ def tgv_alpha(C: int, weight: float) -> float:
     return (weight / math.sqrt(2.0)) / math.sqrt(C)
 
 
-def fused_grad_plain(fdatas, fistas, pgrads, factor: float, weight: float,
-                     h_true: int | None = None, w_true: int | None = None):
+def fused_grad_plain(fdatas, fistas, pgrads, factor, weight: float,
+                     h_true: int | None = None, w_true: int | None = None,
+                     out=None):
     """Plain PyTorch version of fused_grad: the gather-form stencils of
     ops/tv.py with the Pallas kernel's edge masks for a zero-padded
     canvas (grad_step.py:96-138 of the JAX package)."""
@@ -138,6 +139,10 @@ def fused_grad_plain(fdatas, fistas, pgrads, factor: float, weight: float,
     rows = torch.arange(H, device=f.device)[:, None]
     cols = torch.arange(W, device=f.device)[None, :]
 
+    if isinstance(factor, tuple):
+        # factors[it] as a 0-d float32 tensor: it multiplies to the same
+        # bits as the host float of that value
+        factor = torch.index_select(factor[0], 0, factor[1]).reshape(())
     e = f + factor * (f - fi)
     grad, g_norm, n2 = stencil(e, rows, cols, HT, WT, weight)
     tv = (1.0 / math.sqrt(C)) * torch.sum(g_norm)
@@ -150,7 +155,13 @@ def fused_grad_plain(fdatas, fistas, pgrads, factor: float, weight: float,
         idx = [c for c, p in enumerate(pgrads) if p is not None]
         grad[idx] = grad[idx] + stack_channels(pg)
     sumsq = torch.sum(grad * grad, dim=(1, 2))
-    return grad, e, sumsq, tv, tv2
+    if out is None:
+        return grad, e, sumsq, tv, tv2
+    grad_o, extrap_o, sums, _ = out
+    grad_o.copy_(grad)
+    extrap_o.copy_(e)
+    torch.cat([sumsq, tv.reshape(1), tv2.reshape(1)], out=sums)
+    return grad_o, extrap_o, sums[:C], sums[C], sums[C + 1]
 
 
 def partial_rows(L: int, W: int, slots: int) -> int:
@@ -175,13 +186,18 @@ _ARGTYPES = (
     + [ctypes.c_int] * MAX_CHANNELS  # pgrad plane index per channel (-1: none)
     + [ctypes.c_void_p]              # stream
 )
+# j2p_fused_grad_table, which the wrappers call: the same with the factor
+# table and its index after the factor (null, null: the host float).  The
+# arguments above are j2p_fused_grad_striped's, the host-float entry point
+# every source of the library has (tools/torch_grad_compare.py).
+_TABLE_ARGTYPES = _ARGTYPES[:18] + [ctypes.c_void_p] * 2 + _ARGTYPES[18:]
 
 
 def _launcher():
     lib = _build.library("grad_step")
-    fn = lib.j2p_fused_grad_striped
+    fn = lib.j2p_fused_grad_table
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _TABLE_ARGTYPES
         fn.restype = ctypes.c_int
         for name in ("j2p_grad_partial_rows", "j2p_grad_segment_rows"):
             rows = getattr(lib, name)
@@ -211,11 +227,13 @@ def segment_rows(C: int, tgv: bool, L: int, W: int) -> int:
     return _ask(_launcher()[0], "j2p_grad_segment_rows", C, tgv, L, W)
 
 
-def launch(what: str, fdatas, fistas, pgrads, halos, factor: float,
-           weight: float, row0: int, h_true: int, w_true: int):
+def launch(what: str, fdatas, fistas, pgrads, halos, factor,
+           weight: float, row0: int, h_true: int, w_true: int, out=None):
     """Check the inputs and launch the gradient kernel of csrc/grad_step.cu
     on CUDA tensors: K1 (the whole canvas: row0 0, halos None) or K7 (a
-    band with its halo rows).  Returns (grad, extrap, sums [C + 2])."""
+    band with its halo rows).  `factor`: a host float, or (factors, it)
+    read on the device (fused_grad).  `out`: None, or the (grad, extrap,
+    sums, part) buffers to write.  Returns (grad, extrap, sums [C + 2])."""
     f = stack_channels(fdatas)
     if f.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {f.device}")
@@ -256,25 +274,43 @@ def launch(what: str, fdatas, fistas, pgrads, halos, factor: float,
             pidx[c] = k
             k += 1
     lib, fn = _launcher()
-    grad = torch.empty_like(f)
-    extrap = torch.empty_like(f)
-    # sized for the current card, as the launch's grid is
-    part = scratch(lib, C, weight != 0.0, L, W, f.device)
-    out = torch.empty((C + 2,), device=f.device, dtype=torch.float32)
+    if out is None:
+        # the scratch sized for the current card, as the launch's grid is
+        out = (torch.empty_like(f), torch.empty_like(f),
+               torch.empty((C + 2,), device=f.device, dtype=torch.float32),
+               scratch(lib, C, weight != 0.0, L, W, f.device))
+    grad, extrap, sums, part = out
+    for name, t, shape in (("grad", grad, f.shape),
+                           ("extrap", extrap, f.shape),
+                           ("sums", sums, (C + 2,))):
+        if (t.device != f.device or t.dtype != torch.float32
+                or not t.is_contiguous() or t.shape != shape):
+            raise ValueError(f"{what}: output {name} must be contiguous "
+                             f"float32 {list(shape)} on {f.device}")
+    if isinstance(factor, tuple):
+        factors, it = factor
+        if (factors.device != f.device or factors.dtype != torch.float32
+                or it.device != f.device or it.dtype != torch.int64):
+            raise ValueError(f"{what}: the factor table must be float32 and "
+                             f"its index int64, on {f.device}")
+        factor = (0.0, factors.data_ptr(), it.data_ptr())
+    else:
+        factor = (float(factor), None, None)
     stream = torch.cuda.current_stream(f.device).cuda_stream
     err = fn(f.data_ptr(), fi.data_ptr(),
              *(None if h is None else h.data_ptr() for h in hl),
              None if pg is None else pg.data_ptr(), grad.data_ptr(),
-             extrap.data_ptr(), part.data_ptr(), out.data_ptr(), C, L, W,
-             int(row0), int(h_true), int(w_true), float(factor),
+             extrap.data_ptr(), part.data_ptr(), sums.data_ptr(), C, L, W,
+             int(row0), int(h_true), int(w_true), *factor,
              1.0 / math.sqrt(C), tgv_alpha(C, weight), int(weight != 0.0),
              *pidx, stream)
     _build.check(lib, err, what)
-    return grad, extrap, out
+    return grad, extrap, sums
 
 
-def fused_grad(fdatas, fistas, pgrads, factor: float, weight: float,
-               h_true: int | None = None, w_true: int | None = None):
+def fused_grad(fdatas, fistas, pgrads, factor, weight: float,
+               h_true: int | None = None, w_true: int | None = None,
+               out=None):
     """Run the fused gradient kernel (K1).
 
     Args:
@@ -282,27 +318,33 @@ def fused_grad(fdatas, fistas, pgrads, factor: float, weight: float,
             of [H, W]) on one device.
         pgrads: per-channel list of [H, W] prob pixel gradients, with
             None for channels whose prob term is off.
-        factor: host float FISTA extrapolation factor.
+        factor: the FISTA extrapolation factor: a host float, or a pair
+            (factors [n] float32, it [1] int64) of tensors on the device,
+            the factor then factors[it], read by the kernel (a captured
+            launch replays with the index the device holds).
         weight: TGV2 weight (0 disables the second-order term).
         h_true, w_true: true image extent when [H, W] is a zero-padded
             canvas (edge masks key to these).
+        out: None, or the buffers (grads [C, H, W], extraps [C, H, W],
+            sums [C + 2], part) to write instead of new tensors; part is
+            the kernel's scratch (scratch(); unused on the CPU).
     Returns:
         (grads [C, H, W], extraps [C, H, W], sumsq [C], tv, tv2)
     """
     f = stack_channels(fdatas)
     if f.device.type == "cpu":
         return _build.check_finite("fused_grad", fused_grad_plain(
-            fdatas, fistas, pgrads, factor, weight, h_true, w_true))
+            fdatas, fistas, pgrads, factor, weight, h_true, w_true, out))
     C, H, W = f.shape
     HT = H if h_true is None else int(h_true)
     WT = W if w_true is None else int(w_true)
     if HT > H:
         raise ValueError(f"fused_grad: true extent {HT}x{WT} outside {H}x{W}")
-    grad, extrap, out = launch("fused_grad", f, fistas, pgrads, None, factor,
-                               weight, 0, HT, WT)
+    grad, extrap, sums = launch("fused_grad", f, fistas, pgrads, None,
+                                factor, weight, 0, HT, WT, out)
     _build.count_launch(fused_grad)
     return _build.check_finite(
-        "fused_grad", (grad, extrap, out[:C], out[C], out[C + 1]))
+        "fused_grad", (grad, extrap, sums[:C], sums[C], sums[C + 1]))
 
 
 fused_grad.launches = 0

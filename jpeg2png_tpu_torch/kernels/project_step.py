@@ -104,7 +104,7 @@ def fused_project_plain(extrap, grad, scale, lo, hi, dq, inv_q, p_alpha_ss,
 
 
 def fused_project_multi_plain(extraps, grads, scales, los, his, dqs, iqs,
-                              pa_sss, samps):
+                              pa_sss, samps, out=None):
     """Plain PyTorch version of fused_project_multi: fused_project_plain
     per channel."""
     e_all = stack_channels(extraps)
@@ -114,12 +114,13 @@ def fused_project_multi_plain(extraps, grads, scales, los, his, dqs, iqs,
             for c, (sy, sx) in enumerate(samps)]
     pgrads = [o[1] for o in outs]
     pg = [p for p in pgrads if p is not None]
+    fnew, pgrad, _, dists = (None,) * 4 if out is None else out
     if pg:
         # one [P, H, W] tensor, handed out as per-channel views
-        it = iter(torch.stack(pg))
+        it = iter(torch.stack(pg, out=pgrad))
         pgrads = [None if p is None else next(it) for p in pgrads]
-    return (torch.stack([o[0] for o in outs]), pgrads,
-            torch.stack([o[2] for o in outs]))
+    return (torch.stack([o[0] for o in outs], out=fnew), pgrads,
+            torch.stack([o[2] for o in outs], out=dists))
 
 
 _ARGTYPES = (
@@ -142,7 +143,7 @@ def _launcher():
 
 
 def fused_project_multi(extraps, grads, scales, los, his, dqs, iqs,
-                        pa_sss, samps):
+                        pa_sss, samps, out=None):
     """All channels' normalized step + projection (+ prob) in one launch.
 
     Args:
@@ -153,16 +154,22 @@ def fused_project_multi(extraps, grads, scales, los, his, dqs, iqs,
             channels with the prob term off.
         pa_sss: per-channel host floats p_alpha * sy * sx (0 = prob off).
         samps: per-channel (sy, sx).
+        out: None, or the buffers (fnews [C, H, W], pgrads [P, H, W] for
+            the P channels with the prob term on, part, dists [C]) to
+            write instead of new tensors; part is the kernel's scratch
+            (project_scratch(); unused on the CPU).  fnews may be a
+            buffer the caller no longer needs as input: the kernel reads
+            only extraps and grads of the iterate.
     Returns:
         (fnews [C, H, W], pgrads list with None for prob-off channels,
          dists [C] — per-channel prob distances, 0 where off).
     """
     e = stack_channels(extraps)
     if e.device.type == "cpu":
-        return _build.check_finite("fused_project_multi",
-                                   fused_project_multi_plain(
-                                       extraps, grads, scales, los, his, dqs,
-                                       iqs, pa_sss, samps))
+        return _build.check_finite(
+            "fused_project_multi", fused_project_multi_plain(
+                extraps, grads, scales, los, his, dqs, iqs, pa_sss, samps,
+                out))
     if e.device.type != "cuda":
         raise ValueError(f"fused_project_multi: unsupported device {e.device}")
     g = stack_channels(grads)
@@ -178,12 +185,23 @@ def fused_project_multi(extraps, grads, scales, los, his, dqs, iqs,
         raise ValueError(f"fused_project_multi: scales must be [{C}]")
 
     P = sum(1 for p in pa_sss if p != 0.0)
-    fnew = torch.empty_like(e)
-    pgrad = torch.empty((P, H, W), device=e.device, dtype=torch.float32)
+    if out is None:
+        out = (torch.empty_like(e),
+               torch.empty((P, H, W), device=e.device, dtype=torch.float32),
+               project_scratch(H, W, samps, e.device),
+               torch.empty((C,), device=e.device, dtype=torch.float32))
+    fnew, pgrad, part, dists = out
+    for name, t, shape in (("fnews", fnew, e.shape),
+                           ("pgrads", pgrad, (P, H, W)),
+                           ("part", part, (_project_blocks(H, W, samps),)),
+                           ("dists", dists, (C,))):
+        if (t.device != e.device or t.dtype != torch.float32
+                or not t.is_contiguous() or t.shape != shape):
+            raise ValueError(f"fused_project_multi: output {name} must be "
+                             f"contiguous float32 {list(shape)} on {e.device}")
     ptrs = (ctypes.c_uint64 * (4 * C))()
     ints = (ctypes.c_int * (3 * C))()
     pas = (ctypes.c_float * C)()
-    nblocks = 0
     k = 0
     for c, (sy, sx) in enumerate(samps):
         if H % (8 * sy) or W % (8 * sx) or sy > 4 or sx > 4:
@@ -204,9 +222,6 @@ def fused_project_multi(extraps, grads, scales, los, his, dqs, iqs,
         ints[3 * c:3 * c + 3] = [sy, sx, k if prob else -1]
         pas[c] = pa_sss[c] / (sy * sx)
         k += prob
-        nblocks += (hc // 8) * -(-(wc // 8) // 4)
-    part = torch.empty((nblocks,), device=e.device, dtype=torch.float32)
-    dists = torch.empty((C,), device=e.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(e.device).cuda_stream
     lib, fn = _launcher()
     err = fn(e.data_ptr(), g.data_ptr(), scales.data_ptr(), fnew.data_ptr(),
@@ -220,6 +235,19 @@ def fused_project_multi(extraps, grads, scales, los, his, dqs, iqs,
 
 
 fused_project_multi.launches = 0
+
+
+def _project_blocks(H: int, W: int, samps) -> int:
+    """Thread blocks of one K2 launch, a distance partial each: four
+    coefficient blocks of one row of one channel per block."""
+    return sum((H // (8 * sy)) * -(-(W // (8 * sx)) // 4) for sy, sx in samps)
+
+
+def project_scratch(H: int, W: int, samps, device) -> torch.Tensor:
+    """K2's distance partials [one per thread block] for an [H, W] canvas
+    at sampling `samps`."""
+    return torch.empty((_project_blocks(H, W, samps),), device=device,
+                       dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------

@@ -30,11 +30,16 @@ the canvas project on unconstrained boxes (lo = -2^39, hi = +2^39,
 dq = iq = 0) outside their region, so those pixels evolve freely like
 the reference's loop bounds (compute.c:349-403).
 
-Inside the loop nothing waits for the device: the FISTA factors and the
-step size are host floats, the per-channel step scale is computed on
-the device from K1's sum of squares, and each iteration's partial sums
-stay on the device until the chunk ends, when one fetch turns them into
-metric rows (mega_metrics).
+Inside the loop nothing waits for the device: the per-channel step
+scale is computed on the device from K1's sum of squares, and each
+iteration's partial sums stay on the device until the chunk ends, when
+one fetch turns them into metric rows (mega_metrics).  The step size is
+a host float.  The two tier's iteration reads its FISTA factor from a
+device table (factors[it], the f32 values of iter_step.fista_factors, as
+K3 reads its own) and writes into buffers fixed for the solve
+(_TwoLoop), so on a card it is captured once per solve as a CUDA graph
+of GRAPH_ITERS iterations and replayed; the other loops pass their
+factors as host floats.
 
 Semantics replicated (validated against the JAX package and the
 reference binary's CSV logs / PNG output):
@@ -61,11 +66,13 @@ import numpy as np
 import torch
 
 from jpeg2png_tpu_torch import resolve_device
-from jpeg2png_tpu_torch.kernels import _build, iter_step, stripe_grad
+from jpeg2png_tpu_torch.kernels import (
+    _build, grad_step, iter_step, stripe_grad)
 from jpeg2png_tpu_torch.kernels.grad_step import fused_grad, stack_channels
 from jpeg2png_tpu_torch.kernels.iter_step import fused_solve, fused_solve_lite
 from jpeg2png_tpu_torch.kernels.project_step import (
-    FREE_Q, GAP_BOX, fused_project_multi, fused_project_multi_lite)
+    FREE_Q, GAP_BOX, fused_project_multi, fused_project_multi_lite,
+    project_scratch)
 from jpeg2png_tpu_torch.kernels.stripe_grad import fused_grad_striped_lite
 from jpeg2png_tpu_torch.ops.blocks import deblockify
 from jpeg2png_tpu_torch.ops.dct_raster import idct_raster
@@ -241,6 +248,7 @@ class _Problem:
     dats_c: list   # int16 coefficients / f32 quant on the canvas grid
     qs_c: list     # (region gaps: data 0, quant FREE_Q) — K3's inputs
     f0: torch.Tensor
+    two: "_TwoLoop | None" = None   # the two tier's buffers, made by _run
 
     @property
     def samps(self):
@@ -360,11 +368,11 @@ def _carry_format(carry) -> str:
     return "lite" if carry[1].dtype == torch.bfloat16 else "mega"
 
 
-def _metrics(prob: _Problem, rows, prob_dist):
+def _metrics(prob: _Problem, rows: torch.Tensor, prob_dist):
     """Metric rows from per-iteration [sumsq C, tv, tv2, dists C] rows
-    (the two-kernel tiers' layout), fetched once -> (metrics, the final
-    prob_dist)."""
-    partials = torch.stack(rows).cpu().numpy()
+    (the two-kernel tiers' layout, [n, 2C + 2] on the device), fetched
+    once -> (metrics, the final prob_dist)."""
+    partials = rows.cpu().numpy()
     C = len(prob.geoms)
     cols = list(range(C + 2)) + [C + 2 + c for c in range(C)
                                  if prob.p_alphas[c] != 0.0]
@@ -374,41 +382,197 @@ def _metrics(prob: _Problem, rows, prob_dist):
     return metrics, float(dist_final)
 
 
-def _run(prob: _Problem, carry, nsteps: int, tier: str):
+# Iterations of the two tier in one captured CUDA graph: even, so the
+# iterate's two planes come back to their places after a replay.  Chosen
+# on the card among 2, 4, 6, 8 and 10 (PERF.md §6): a capture costs about
+# 1.5 ms + 0.5 ms an iteration of host time while the card waits, and a
+# replay a few microseconds, so 2 was fastest or tied at every size
+# (1536x1024 to 3264x2448, 50 and 1000 iterations).
+GRAPH_ITERS = 2
+
+
+def _count_launches(n: int) -> None:
+    """Add n to K1's and K2's launch counts: the kernels a graph's replays
+    ran, less those its capture counted without running them."""
+    for wrapper in (fused_grad, fused_project_multi):
+        _build.count_launch(wrapper, n)
+
+
+def _replays(device: torch.device) -> bool:
+    """Whether the two tier captures and replays its iteration: on a card,
+    unless fp_exceptions is on (its per-iteration checks synchronise)."""
+    return device.type == "cuda" and not _build.fp_traps
+
+
+class _TwoLoop:
+    """The two tier's iteration on buffers fixed for one solve.
+
+    The iterate and its FISTA shadow are two [C, H, W] planes that trade
+    places every iteration (`cur` holds f): K1 reads f, fista, pgrad and
+    its factor factors[it]; the step scale step / |g| is computed on the
+    device; K2 writes the new iterate into the plane whose fista K1 has
+    just consumed, and the next prob gradient over pgrad; the iteration's
+    row [sumsq C, tv, tv2, dists C] goes to rows[it]; it += 1.  Nothing
+    there allocates (every op writes a buffer of the solve, so a capture
+    takes no memory of its own) or reads a host value that changes, so on
+    a card GRAPH_ITERS iterations are captured once per solve (a graph per
+    parity of `cur`) and replayed; the CPU, fp_exceptions and the
+    remainders run the same `step` eagerly.  The carry a chunk returns
+    holds the planes and pgrad themselves: it is current until the next
+    chunk of the same solve, which continues from it."""
+
+    def __init__(self, prob: _Problem):
+        dev = prob.f0.device
+        C, H, W = prob.f0.shape
+        mask = [pa != 0.0 for pa in prob.p_alphas]
+        self.planes = [torch.empty_like(prob.f0), torch.empty_like(prob.f0)]
+        self.pgrad = torch.empty((sum(mask), H, W), device=dev)
+        it = iter(self.pgrad)
+        self.pg_in = [next(it) if m else None for m in mask]
+        self.dqs = [d if m else None for d, m in zip(prob.dqs_c, mask)]
+        self.iqs = [q if m else None for q, m in zip(prob.iqs_c, mask)]
+        self.grads = torch.empty_like(prob.f0)
+        self.extraps = torch.empty_like(prob.f0)
+        # an iteration's metric row: K1's sums, then K2's distances
+        self.row = torch.empty((2 * C + 2,), device=dev)
+        self.sums, self.dists = self.row[:C + 2], self.row[C + 2:]
+        self.norms = torch.empty((C,), device=dev)
+        self.flat = torch.empty((C,), device=dev, dtype=torch.bool)
+        self.scale = torch.empty((C,), device=dev)
+        self.k1_part = (grad_step.scratch(grad_step._launcher()[0], C,
+                                          prob.weight != 0.0, H, W, dev)
+                        if dev.type == "cuda" else None)
+        self.k2_part = project_scratch(H, W, prob.samps, dev)
+        self.it = torch.zeros((1,), device=dev, dtype=torch.int64)
+        self.factors = self.rows = None
+        self.cur = 0
+        self.handed = None       # (f, fista, pgrad) of the carry handed out
+        self.graphs = {}         # cur at the start -> CUDAGraph
+
+    def load(self, carry) -> None:
+        """Put a carry's iterate, shadow and prob gradient in the planes,
+        unless it is the one the last chunk handed out (already there)."""
+        f, fi, pg = carry[:3]
+        if self.handed is not None and all(
+                a is b for a, b in zip((f, fi, pg), self.handed)):
+            return
+        mine = {b.untyped_storage().data_ptr()
+                for b in (*self.planes, self.pgrad) if b.numel()}
+        if any(isinstance(x, torch.Tensor) and x.numel()
+               and x.untyped_storage().data_ptr() in mine
+               for x in (f, fi, pg)):
+            raise ValueError("this carry was handed out before the solve's "
+                             "last chunk, whose iterations overwrote it")
+        self.planes[0].copy_(stack_channels(f))
+        self.planes[1].copy_(stack_channels(fi))
+        self.pgrad.copy_(pg)
+        self.cur = 0
+
+    def step(self, prob: _Problem, i) -> None:
+        """One iteration (i: its number in the chunk, for fp_exceptions;
+        None while capturing)."""
+        f, fi = self.planes[self.cur], self.planes[1 - self.cur]
+        _, _, sumsq, _, _ = fused_grad(
+            f, fi, self.pg_in, (self.factors, self.it), prob.weight,
+            h_true=prob.H, w_true=prob.W,
+            out=(self.grads, self.extraps, self.sums, self.k1_part))
+        # where(|g| == 0, 0, step / |g|), op for op as PyTorch computes
+        # it (step / t is t.reciprocal() * step), into the buffers
+        torch.sqrt(sumsq, out=self.norms)
+        torch.eq(self.norms, 0.0, out=self.flat)
+        torch.reciprocal(self.norms, out=self.scale)
+        self.scale.mul_(prob.step_size).masked_fill_(self.flat, 0.0)
+        fused_project_multi(
+            self.extraps, self.grads, self.scale, prob.los, prob.his,
+            self.dqs, self.iqs, prob.pa_sss, prob.samps,
+            out=(fi, self.pgrad, self.k2_part, self.dists))
+        self.rows.index_copy_(0, self.it, self.row[None])
+        self.it.add_(1)
+        self.cur = 1 - self.cur
+        _build.check_finite("two tier", (fi, self.pgrad), i)
+
+    def _graph(self, prob: _Problem):
+        """The graph of GRAPH_ITERS iterations from the current parity,
+        captured on a side stream ordered after the current one (not
+        torch.cuda.graph, which synchronises the device and empties the
+        allocator's cache on entry) in thread-local mode, so the other
+        cards' threads launch meanwhile.  Capturing runs nothing: the
+        launch counts it added are taken back."""
+        g = self.graphs.get(self.cur)
+        if g is None:
+            dev = self.planes[0].device
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side):
+                g.capture_begin(capture_error_mode="thread_local")
+                try:
+                    for _ in range(GRAPH_ITERS):
+                        self.step(prob, None)
+                finally:
+                    g.capture_end()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            _count_launches(-GRAPH_ITERS)
+            self.graphs[self.cur] = g
+        return g
+
+    def run(self, prob: _Problem, factors: np.ndarray, span) -> torch.Tensor:
+        """The chunk's iterations, factors [n] f32 -> their rows [n, 2C + 2]
+        on the device.  `span` (the "solve.loop" span, or None) counts
+        the iterations run inside replays (graph_iters) and eagerly
+        (eager_iters)."""
+        n = len(factors)
+        dev = self.it.device
+        if self.rows is None or self.rows.shape[0] < n:
+            # the graphs read the tables' addresses: new tables, new graphs
+            self.factors = torch.empty((n,), device=dev)
+            self.rows = torch.empty((n, self.row.shape[0]), device=dev)
+            self.graphs.clear()
+        # from pageable memory a non-blocking copy is staged before it
+        # returns, and waits for no earlier work on the stream
+        self.factors[:n].copy_(torch.from_numpy(factors), non_blocking=True)
+        self.it.zero_()
+        reps = n // GRAPH_ITERS if _replays(dev) else 0
+        if reps:
+            g = self._graph(prob)
+            for _ in range(reps):
+                g.replay()
+            _count_launches(reps * GRAPH_ITERS)
+        eager = n - reps * GRAPH_ITERS
+        for k in range(reps * GRAPH_ITERS, n):
+            self.step(prob, k)
+        if span is not None:
+            profiling.count(span, "graph_iters", reps * GRAPH_ITERS)
+            profiling.count(span, "eager_iters", eager)
+        return self.rows[:n]
+
+    def carry(self, prob_dist, t):
+        """The chunk's carry: new views of the buffers each chunk, so that
+        load() tells the last one handed out from an earlier one."""
+        self.handed = tuple(x[...] for x in (
+            self.planes[self.cur], self.planes[1 - self.cur], self.pgrad))
+        return (*self.handed, prob_dist, t)
+
+
+def _run(prob: _Problem, carry, nsteps: int, tier: str, span=None):
     """nsteps iterations of `tier` from `carry` (that tier's format) ->
-    (carry, metrics [nsteps, 4])."""
+    (carry, metrics [nsteps, 4]).  `span`: the "solve.loop" span, which
+    the two tier's counts go to."""
     if tier in ("mega", "mega-lite"):
         return _run_mega(prob, carry, nsteps, tier == "mega-lite")
     if tier == "two-lite":
         return _run_two_lite(prob, carry, nsteps)
-    fdatas, fistas, pgrads, prob_dist, t = carry
-    factors, t_final = iter_step.fista_factors(t, nsteps)
-    prob_mask = [pa != 0.0 for pa in prob.p_alphas]
-    samps, pa_sss = prob.samps, prob.pa_sss
-    dqs = [d if m else None for d, m in zip(prob.dqs_c, prob_mask)]
-    iqs = [q if m else None for q, m in zip(prob.iqs_c, prob_mask)]
-    rows = []
-    for i in range(nsteps):
-        it = iter(pgrads)
-        pg_in = [next(it) if m else None for m in prob_mask]
-        grads, extraps, sumsq, tv, tv2 = fused_grad(
-            fdatas, fistas, pg_in, float(factors[i]), prob.weight,
-            h_true=prob.H, w_true=prob.W)
-        norms = torch.sqrt(sumsq)
-        scale = torch.where(norms == 0.0, 0.0, prob.step_size / norms)
-        fnews, pgs, dists = fused_project_multi(
-            extraps, grads, scale, prob.los, prob.his, dqs, iqs, pa_sss,
-            samps)
-        rows.append(torch.cat([sumsq, tv.reshape(1), tv2.reshape(1), dists]))
-        pg_list = [p for p in pgs if p is not None]
-        fistas, fdatas = fdatas, fnews
-        pgrads = stack_channels(pg_list) if pg_list else pgrads
-        _build.check_finite("two tier", (fdatas, pgrads), i)
-    if not rows:
+    if nsteps == 0:
         return carry, np.zeros((0, 4), np.float32)
+    prob_dist, t = carry[3:]
+    if prob.two is None:
+        prob.two = _TwoLoop(prob)
+    prob.two.load(carry)
+    factors, t_final = iter_step.fista_factors(t, nsteps)
+    rows = prob.two.run(prob, factors, span)
     # the chunk's one device -> host fetch
     metrics, dist_final = _metrics(prob, rows, prob_dist)
-    return (fdatas, fistas, pgrads, dist_final, t_final), metrics
+    return prob.two.carry(dist_final, t_final), metrics
 
 
 def _run_two_lite(prob: _Problem, carry, nsteps: int):
@@ -433,7 +597,7 @@ def _run_two_lite(prob: _Problem, carry, nsteps: int):
         devqs = [d for d in dq_out if d is not None]
         rows.append(torch.cat([sumsq, tv.reshape(1), tv2.reshape(1), dists]))
         _build.check_finite("two-lite tier", (fdatas, ds, devqs), i)
-    metrics, dist_final = _metrics(prob, rows, prob_dist)
+    metrics, dist_final = _metrics(prob, torch.stack(rows), prob_dist)
     return (fdatas, ds, tuple(devqs), dist_final, t_final), metrics
 
 
@@ -574,7 +738,9 @@ def solve_steps(datas, quants, samps, weight, pweights, iterations,
     The set-up and the loop are the "solve.setup" and "solve.loop" spans:
     the set-up counts the host -> device "bytes" of _build_problem's
     uploads (_initial_carry uploads nothing: its state is made on the
-    device), the loop carries the solve's "tier".
+    device), the loop carries the solve's "tier" and, in the two tier,
+    counts the iterations run inside graph replays ("graph_iters") and
+    eagerly ("eager_iters").
     """
     device = resolve_device(device)
     with profiling.span("solve.setup") as sp:
@@ -586,9 +752,9 @@ def solve_steps(datas, quants, samps, weight, pweights, iterations,
         elif _carry_format(carry) != _CARRY_FORMAT[tier]:
             raise ValueError(f"a {_carry_format(carry)!r}-format carry "
                              f"cannot resume a {tier!r}-tier solve")
-    with profiling.span("solve.loop", tier=tier):
+    with profiling.span("solve.loop", tier=tier) as sp:
         carry, metrics = _run(prob, carry, iterations if nsteps is None
-                              else nsteps, tier)
+                              else nsteps, tier, sp)
     return carry[0], metrics, carry
 
 
@@ -647,10 +813,10 @@ def solve_joint_chunked(
         carry = _initial_carry(prob, tier)
     all_metrics = []
     done = 0
-    with profiling.span("solve.loop", tier=tier):
+    with profiling.span("solve.loop", tier=tier) as sp:
         while done < iterations:
             n = min(chunk, iterations - done)
-            carry, metrics = _run(prob, carry, n, tier)
+            carry, metrics = _run(prob, carry, n, tier, sp)
             done += n
             all_metrics.append(metrics)
             if on_chunk is not None:

@@ -135,17 +135,21 @@ def _run_on_cards(work, devices, stats: Optional[dict] = None) -> None:
     (card: the CUDA ordinal), a child of the span open on the calling
     thread.  The first exception on any thread stops every thread taking
     more and is raised here once all have stopped.  `stats` receives the
-    devices (cards), the items each ran (card_items) and each one's
-    seconds inside its items (card_busy_s)."""
+    devices (cards), the items each ran (card_items), each one's seconds
+    inside its items (card_busy_s), and the two tier's iterations run
+    inside CUDA graph replays and eagerly (two_graph_iters,
+    two_eager_iters: the counts of the items' "solve.loop" spans)."""
     queue = list(reversed(work))
     lock = threading.Lock()
     failed: List[BaseException] = []
     done: List[list] = [[] for _ in devices]
+    loops: List[list] = [[] for _ in devices]
     parent = profiling.current()
 
     def worker(k):
         dev = devices[k]
-        with on_device(dev), profiling.within(parent):
+        with on_device(dev), profiling.within(parent), \
+                profiling.collected("solve.loop") as loops[k]:
             while True:
                 with lock:
                     if failed or not queue:
@@ -172,6 +176,9 @@ def _run_on_cards(work, devices, stats: Optional[dict] = None) -> None:
         stats["cards"] = [str(d) for d in devices]
         stats["card_items"] = [len(d) for d in done]
         stats["card_busy_s"] = [sum(sp.seconds for sp in d) for d in done]
+        for key in ("graph_iters", "eager_iters"):
+            stats[f"two_{key}"] = sum(sp.attrs.get(key, 0)
+                                      for sps in loops for sp in sps)
 
 
 class _BucketSolve:

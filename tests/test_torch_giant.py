@@ -108,4 +108,6 @@ def test_loop_span_tier_is_the_tier_that_ran(tmp_path, monkeypatch,
         solver.solve_joint(datas, quants, samps, 0.3, [0.001] * 3, 2,
                            device="cpu", tier=forced)
     (loop,) = [s for s in spans if s.name == "solve.loop"]
-    assert loop.attrs == {"tier": want}
+    # the two tier also counts its iterations: on the CPU every one eager
+    counts = {"graph_iters": 0, "eager_iters": 2} if want == "two" else {}
+    assert loop.attrs == {"tier": want, **counts}
