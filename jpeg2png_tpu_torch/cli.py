@@ -62,8 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
         "the smoothest image that re-encodes to the input JPEG.",
         epilog="Progress note: the solve runs on the device; the bar's "
         "total counts iterations and advances in resumable device "
-        "chunks (per iteration for solves of <= 16 iterations, roughly "
-        "8-50 iterations each beyond that).",
+        "chunks, by one rule for single files and --tpu-batch "
+        "(models/solver.py iter_chunk: per iteration for solves of <= 16 "
+        "iterations, iterations/20 within 8-50 beyond that).",
         add_help=False,
     )
     p.add_argument("inputs", nargs="*", metavar="picture.jpg")

@@ -28,13 +28,15 @@ lane or band padding: the port's kernels take any canvas of whole 8x8
 coefficient blocks).  Channels whose region is smaller than
 the canvas project on unconstrained boxes (lo = -2^39, hi = +2^39,
 dq = iq = 0) outside their region, so those pixels evolve freely like
-the reference's loop bounds (compute.c:349-403).
+the reference's loop bounds (compute.c:349-403).  The serving runner's
+buckets run the same tiers on a shared canvas (solve_canvas): each image
+zero-padded into it with its true extent and step size as device values.
 
 Inside the loop nothing waits for the device: the per-channel step
 scale is computed on the device from K1's sum of squares, and each
 iteration's partial sums stay on the device until the chunk ends, when
 one fetch turns them into metric rows (mega_metrics).  The step size is
-a host float.  The two tier's iteration reads its FISTA factor from a
+a host float (a bucket's: a device value per image).  The two tier's iteration reads its FISTA factor from a
 device table (factors[it], the f32 values of iter_step.fista_factors, as
 K3 reads its own) and writes into buffers fixed for the solve
 (_TwoLoop), so on a card it is captured once per solve as a CUDA graph
@@ -116,6 +118,7 @@ def canvas_shape(geoms: Sequence[ChannelGeometry]) -> Tuple[int, int]:
 
 
 TIERS = ("mega", "mega-lite", "two-lite", "two")
+MAX_IMAGES = iter_step.MAX_BATCH   # images of one K3 launch (solve_canvas)
 
 # The tier gates: the largest canvas (pixels) each tier takes, tried in
 # the order mega -> mega-lite -> two-lite, else two.  Set from the card's
@@ -148,20 +151,28 @@ MEGA_LITE_MAX_PIXELS = 0
 TWO_LITE_MAX_PIXELS = 0
 
 
+def takes(tier: str, nchannel: int, H: int, W: int, samps,
+          n_prob: int) -> bool:
+    """Whether `tier`'s kernels take an [H, W] canvas (the two tier takes
+    any canvas of whole 8x8 coefficient blocks)."""
+    if tier in ("mega", "mega-lite"):
+        return iter_step.supports(nchannel, H, W, samps, n_prob)
+    if tier == "two-lite":
+        return stripe_grad.supports(nchannel, H, W, samps)
+    return True
+
+
 def tier_rule(nchannel: int, H: int, W: int, samps, n_prob: int) -> str:
     """The tier that solves an [H, W] canvas: the first of mega ->
     mega-lite -> two-lite whose size gate and kernel geometry gate hold,
     else two.  The one rule for the single-image tier (active_tier) and
     the serving runner's buckets (runner.plan_buckets)."""
     px = H * W
-    whole = iter_step.supports(nchannel, H, W, samps, n_prob)
-    if whole and px <= MEGA_MAX_PIXELS:
-        return "mega"
-    if whole and px <= MEGA_LITE_MAX_PIXELS:
-        return "mega-lite"
-    if px <= TWO_LITE_MAX_PIXELS and stripe_grad.supports(nchannel, H, W,
-                                                          samps):
-        return "two-lite"
+    for tier, limit in (("mega", MEGA_MAX_PIXELS),
+                        ("mega-lite", MEGA_LITE_MAX_PIXELS),
+                        ("two-lite", TWO_LITE_MAX_PIXELS)):
+        if px <= limit and takes(tier, nchannel, H, W, samps, n_prob):
+            return tier
     return "two"
 
 
@@ -219,35 +230,32 @@ def mega_metrics(partials: np.ndarray, prob_dist_prev, p_alphas,
     return metrics, dist_total[-1]
 
 
-def initial_decode(data: torch.Tensor, quant: torch.Tensor) -> torch.Tensor:
-    """Plain JPEG decode of one channel: dequantize + IDCT (jpeg.c:83-92).
-
-    data: [nby, nbx, 8, 8] int16; quant: [8, 8] float. Returns [ph, pw].
-    """
-    nby, nbx = data.shape[:2]
-    return idct_raster(deblockify(data.to(quant.dtype)) * quant.tile(nby, nbx))
-
-
 @dataclasses.dataclass
 class _Problem:
-    """Device constants of one solve (everything but the iterate)."""
-    geoms: Tuple[ChannelGeometry, ...]
+    """Device constants of one solve (everything but the iterate): one
+    image on its own canvas, or a bucket's images zero-padded into one
+    canvas, each with its true extent and step size (solve_canvas)."""
+    geoms: Tuple[ChannelGeometry, ...]   # a bucket's: the canvas's
     H: int
     W: int
     weight: float
-    step_size: float
+    # radius/sqrt(1 + iterations): a host float; a bucket's [n] f32 tensor
+    # (K3), or [] for its one image (the lite pair)
+    step_size: "float | torch.Tensor"
     p_alphas: list
     total_alpha: float
     simd_compat_logging: bool
-    dqs: list      # per channel [ph, pw] data*quant (own region)
-    inv_qs: list   # per channel [ph, pw] 1/quant (own region)
-    los: list      # per channel [H/sy, W/sx], region gaps unconstrained
-    his: list
-    dqs_c: list    # dq / 1/q on the canvas grid, 0 in region gaps
-    iqs_c: list
     dats_c: list   # int16 coefficients / f32 quant on the canvas grid
     qs_c: list     # (region gaps: data 0, quant FREE_Q) — K3's inputs
-    f0: torch.Tensor
+    f0: torch.Tensor   # [C, H, W]; K3's bucket [n, C, H, W]
+    extents: "torch.Tensor | None" = None   # a bucket's int32 (h, w): [n, 2]
+    # the two tier's and carry_from_numpy's constants (single images only)
+    dqs: list = None      # per channel [ph, pw] data*quant (own region)
+    inv_qs: list = None   # per channel [ph, pw] 1/quant (own region)
+    los: list = None      # per channel [H/sy, W/sx], region gaps unconstrained
+    his: list = None
+    dqs_c: list = None    # dq / 1/q on the canvas grid, 0 in region gaps
+    iqs_c: list = None
     two: "_TwoLoop | None" = None   # the two tier's buffers, made by _run
 
     @property
@@ -258,6 +266,11 @@ class _Problem:
     def pa_sss(self):
         return [pa * g.h_samp * g.w_samp
                 for pa, g in zip(self.p_alphas, self.geoms)]
+
+    @property
+    def batch(self):
+        """The images of a batched (K3 bucket) problem, else None."""
+        return self.f0.shape[0] if self.f0.dim() == 4 else None
 
 
 def _geometry(datas, samps):
@@ -275,12 +288,90 @@ def _upload(x, span, **kw) -> torch.Tensor:
     return t
 
 
+def _pad(x: torch.Tensor, h: int, w: int, value: float = 0.0):
+    """x [..., rows, cols] padded at the bottom and right to [..., h, w]."""
+    pad = (0, w - x.shape[-1], 0, h - x.shape[-2])
+    if not (pad[1] or pad[3]):
+        return x
+    return torch.nn.functional.pad(x, pad, value=value)
+
+
+def step_size(H: int, W: int, iterations: int) -> float:
+    """The constant step radius/sqrt(1 + iterations), radius = sqrt(h*w)/2
+    of the image's own canvas (compute.c:425, 443)."""
+    return math.sqrt(float(H) * float(W)) / 2.0 / math.sqrt(1.0 + iterations)
+
+
+def canvas_inputs(datas, quants, samps, canvas, device, span=None):
+    """K3's and the lite tiers' inputs for n >= 1 images of one sampling
+    on one [H, W] canvas, each image at the top left of it.
+
+    datas, quants: per image, per channel int16 [nby, nbx, 8, 8] DCT
+    coefficients and [8, 8] quantization tables (numpy arrays, or tensors
+    already on the device: utils/timing.py uploads once for its timed
+    solves).  `span` (the "solve.setup" span) counts the bytes uploaded
+    from the host.  Per image and channel, on the coefficient grid of the
+    canvas (coefficient (u,v) of block (by,bx) at (8by+u, 8bx+v)):
+      * the int16 coefficients, 0 beyond the channel's region;
+      * the quant raster: the table over the region, FREE_Q over the gap
+        between the region and the image's canvas (unconstrained, no prob
+        term, like the reference's loop bounds, compute.c:349-403), 0
+        beyond the image's canvas (frozen bucket padding);
+      * f0: the plain decode (dequantize + IDCT, jpeg.c:83-92),
+        nearest-upsampled with edge clamping to the image's canvas
+        (compute.c:296-302), 0 beyond it.
+    Returns (f0 [n, C, H, W] f32, per channel [n, H/sy, W/sx] int16
+    rasters, per channel [n, H/sy, W/sx] f32 quant rasters, each image's
+    canvas (h, w))."""
+    H, W = canvas
+    C = len(samps)
+    f0, dats, qs, extents = [], [[] for _ in samps], [[] for _ in samps], []
+    for ds, qts in zip(datas, quants):
+        geoms = _geometry(ds, samps)
+        eh, ew = canvas_shape(geoms)
+        if eh > H or ew > W:
+            raise ValueError(f"image canvas {eh}x{ew} does not fit the "
+                             f"{H}x{W} canvas")
+        extents.append((eh, ew))
+        for c, (d, q, g) in enumerate(zip(ds, qts, geoms)):
+            q_r = _upload(q, span, dtype=torch.float32, device=device)
+            q_r = q_r.tile(g.nby, g.nbx)
+            data_i16 = deblockify(_upload(d, span, device=device))
+            dq = data_i16.to(torch.float32) * q_r
+            f0.append(_pad(upsample_nearest_clamped(
+                idct_raster(dq), g.h_samp, g.w_samp, eh, ew), H, W))
+            hc, wc = H // g.h_samp, W // g.w_samp
+            dats[c].append(_pad(data_i16, hc, wc))
+            qs[c].append(_pad(_pad(q_r, eh // g.h_samp, ew // g.w_samp,
+                                   FREE_Q), hc, wc))
+
+    def stack(xs):
+        return xs[0][None] if len(xs) == 1 else torch.stack(xs)
+
+    return (torch.stack(f0).view(len(datas), C, H, W),
+            [stack(x) for x in dats], [stack(x) for x in qs], extents)
+
+
+def bucket_inputs(datas, quants, samps, canvas, iterations, device):
+    """canvas_inputs of a bucket's images, with each image's canvas and
+    step size (step_size of its own canvas) as device values: (f0 [n, C,
+    H, W], int16 rasters, quant rasters, extents [n, 2] int32, step sizes
+    [n] f32), K3's dynamic-extent inputs."""
+    f0, dats, qs, extents = canvas_inputs(datas, quants, samps, canvas,
+                                          device)
+    steps = [step_size(h, w, iterations) for h, w in extents]
+    return (f0, dats, qs,
+            torch.as_tensor(np.asarray(extents, np.int32), device=device),
+            torch.as_tensor(np.asarray(steps, np.float32), device=device))
+
+
 def _build_problem(datas, quants, samps, weight, pweights, iterations,
                    simd_compat_logging, device, span=None) -> _Problem:
-    """The device constants of a solve.  `span` (the "solve.setup" span)
-    counts the bytes of the coefficients and quantisation tables uploaded
-    from the host; the upsampling's index vectors (8 (H + W) bytes a
-    channel) and the cached transform matrices are left out."""
+    """The device constants of a solve of one image on its own canvas.
+    `span` (the "solve.setup" span) counts the bytes of the coefficients
+    and quantisation tables uploaded from the host; the upsampling's index
+    vectors (8 (H + W) bytes a channel) and the cached transform matrices
+    are left out."""
     geoms = _geometry(datas, samps)
     H, W = canvas_shape(geoms)
     for g in geoms:
@@ -288,49 +379,31 @@ def _build_problem(datas, quants, samps, weight, pweights, iterations,
             raise ValueError(
                 f"canvas {H}x{W} is not whole 8x8 coefficient blocks at "
                 f"sampling ({g.h_samp}, {g.w_samp})")
-    radius = math.sqrt(float(H) * float(W)) / 2.0
     p_alphas, total_alpha = objective_alphas(weight, pweights, len(geoms))
-    dqs, inv_qs, los, his, dqs_c, iqs_c, f0 = [], [], [], [], [], [], []
-    dats_c, qs_c = [], []
-    for d, q, g in zip(datas, quants, geoms):
-        # coefficient (u,v) of block (by,bx) lives at (8by+u, 8bx+v)
-        # numpy arrays, or tensors already on the device (utils/timing.py
-        # uploads once for its timed solves)
-        q_r = _upload(q, span, dtype=torch.float32, device=device)
-        q_r = q_r.tile(g.nby, g.nbx)
-        data_i16 = deblockify(_upload(d, span, device=device))
-        data_r = data_i16.to(torch.float32)
-        dq = data_r * q_r
+    f0, dats_c, qs_c, _ = canvas_inputs([datas], [quants], samps, (H, W),
+                                        device, span)
+    dats_c = [x[0] for x in dats_c]
+    qs_c = [x[0] for x in qs_c]
+    dqs, inv_qs, los, his, dqs_c, iqs_c = [], [], [], [], [], []
+    for data_i16, q_r, g in zip(dats_c, qs_c, geoms):
+        q_r = q_r[:g.ph, :g.pw]
+        dq = data_i16[:g.ph, :g.pw].to(torch.float32) * q_r
         iq = 1.0 / q_r
         dqs.append(dq)
         inv_qs.append(iq)
-        # initial iterate: plain decode, nearest-upsampled to the canvas
-        # with edge clamping (compute.c:296-302)
-        f0.append(upsample_nearest_clamped(
-            idct_raster(dq), g.h_samp, g.w_samp, H, W))
-        lo, hi = dq - 0.5 * q_r, dq + 0.5 * q_r
-        pad = (0, W // g.w_samp - g.pw, 0, H // g.h_samp - g.ph)
-        if pad[1] or pad[3]:
-            # region gap: unconstrained boxes, no prob term
-            lo = torch.nn.functional.pad(lo, pad, value=-GAP_BOX)
-            hi = torch.nn.functional.pad(hi, pad, value=GAP_BOX)
-            dq = torch.nn.functional.pad(dq, pad)
-            iq = torch.nn.functional.pad(iq, pad)
-            data_i16 = torch.nn.functional.pad(data_i16, pad)
-            q_r = torch.nn.functional.pad(q_r, pad, value=FREE_Q)
-        dats_c.append(data_i16.contiguous())
-        qs_c.append(q_r.contiguous())
-        los.append(lo)
-        his.append(hi)
-        dqs_c.append(dq)
-        iqs_c.append(iq)
+        # region gap: unconstrained boxes, no prob term
+        hc, wc = H // g.h_samp, W // g.w_samp
+        los.append(_pad(dq - 0.5 * q_r, hc, wc, -GAP_BOX))
+        his.append(_pad(dq + 0.5 * q_r, hc, wc, GAP_BOX))
+        dqs_c.append(_pad(dq, hc, wc))
+        iqs_c.append(_pad(iq, hc, wc))
     return _Problem(
         geoms=geoms, H=H, W=W, weight=float(weight),
-        step_size=radius / math.sqrt(1.0 + iterations),
+        step_size=step_size(H, W, iterations),
         p_alphas=p_alphas, total_alpha=total_alpha,
         simd_compat_logging=bool(simd_compat_logging),
-        dqs=dqs, inv_qs=inv_qs, los=los, his=his, dqs_c=dqs_c, iqs_c=iqs_c,
-        dats_c=dats_c, qs_c=qs_c, f0=torch.stack(f0))
+        dats_c=dats_c, qs_c=qs_c, f0=f0[0],
+        dqs=dqs, inv_qs=inv_qs, los=los, his=his, dqs_c=dqs_c, iqs_c=iqs_c)
 
 
 def _initial_carry(prob: _Problem, tier: str):
@@ -343,6 +416,7 @@ def _initial_carry(prob: _Problem, tier: str):
     "two-lite", "mega-lite": (fdatas f32, ds = fdatas - fistas bf16,
             devqs tuple bf16, prob_dist, t) — the JAX two-lite carry
             (solver.py:478-480), one format for both lite tiers.
+    A K3 bucket's state has a leading image axis, and prob_dist is [n].
     """
     fmt = _CARRY_FORMAT[tier]
     side = torch.bfloat16 if fmt == "lite" else torch.float32
@@ -351,7 +425,9 @@ def _initial_carry(prob: _Problem, tier: str):
                       zip(prob.qs_c, prob.p_alphas) if pa != 0.0)
         fista = (torch.zeros_like(prob.f0, dtype=side) if fmt == "lite"
                  else prob.f0)
-        return (prob.f0, fista, devqs, 0.0, 1.0)
+        dist = (0.0 if prob.batch is None
+                else np.zeros((prob.batch,), np.float32))
+        return (prob.f0, fista, devqs, dist, 1.0)
     n_prob = sum(1 for pa in prob.p_alphas if pa != 0.0)
     pg0 = torch.zeros((n_prob, prob.H, prob.W), device=prob.f0.device)
     return (prob.f0, prob.f0, pg0, 0.0, 1.0)
@@ -577,7 +653,8 @@ def _run(prob: _Problem, carry, nsteps: int, tier: str, span=None):
 
 def _run_two_lite(prob: _Problem, carry, nsteps: int):
     """The two-lite tier: K4 on the whole canvas as one band (row0 0, no
-    halos, the canvas its own true extent), then K5, per iteration."""
+    halos, the true extent the canvas or the problem's `extents`), then K5,
+    per iteration."""
     fdatas, ds, devqs, prob_dist, t = carry
     if nsteps == 0:
         return carry, np.zeros((0, 4), np.float32)
@@ -588,7 +665,7 @@ def _run_two_lite(prob: _Problem, carry, nsteps: int):
         factor = float(factors[i])
         grads, sumsq, tv, tv2 = fused_grad_striped_lite(
             fdatas, ds, devqs, None, factor, 0, prob.weight, prob.samps,
-            prob.pa_sss, prob.H, prob.H, prob.W)
+            prob.pa_sss, prob.H, prob.H, prob.W, extents=prob.extents)
         norms = torch.sqrt(sumsq)
         scale = torch.where(norms == 0.0, 0.0, prob.step_size / norms)
         fdatas, ds, dq_out, dists = fused_project_multi_lite(
@@ -603,7 +680,8 @@ def _run_two_lite(prob: _Problem, carry, nsteps: int):
 
 def _run_mega(prob: _Problem, carry, nsteps: int, lite: bool):
     """The mega tiers: all nsteps iterations in one K3 launch (lite: on
-    the lite carry, K3's lite mode)."""
+    the lite carry, K3's lite mode); a bucket's images in one launch in
+    dynamic-extent mode, with metrics [n, nsteps, 4]."""
     fdatas, side, devqs, prob_dist, t = carry
     if nsteps == 0:
         return carry, np.zeros((0, 4), np.float32)
@@ -611,14 +689,22 @@ def _run_mega(prob: _Problem, carry, nsteps: int, lite: bool):
     solve = fused_solve_lite if lite else fused_solve
     fdatas, side, devqs, partials = solve(
         fdatas, side, list(devqs), factors, prob.step_size, prob.dats_c,
-        prob.qs_c, prob.pa_sss, prob.samps, prob.weight)
+        prob.qs_c, prob.pa_sss, prob.samps, prob.weight,
+        extents=prob.extents)
     _build.check_finite("mega tier", (fdatas, side, devqs), nsteps - 1)
     # the chunk's one device -> host fetch
-    metrics, dist_final = mega_metrics(
-        partials.cpu().numpy(), prob_dist, prob.p_alphas, prob.total_alpha,
-        prob.simd_compat_logging)
-    return (fdatas, side, tuple(devqs), float(dist_final),
-            t_final), metrics
+    partials = partials.cpu().numpy()
+    state = (fdatas, side, tuple(devqs))
+    if prob.batch is None:
+        metrics, dist_final = mega_metrics(
+            partials, prob_dist, prob.p_alphas, prob.total_alpha,
+            prob.simd_compat_logging)
+        return (*state, float(dist_final), t_final), metrics
+    rows = [mega_metrics(p, d, prob.p_alphas, prob.total_alpha,
+                         prob.simd_compat_logging)
+            for p, d in zip(partials, prob_dist)]
+    return ((*state, np.asarray([d for _, d in rows], np.float32), t_final),
+            np.stack([m for m, _ in rows]))
 
 
 def _resolve_tier(prob: _Problem, tier, pweights) -> str:
@@ -626,12 +712,8 @@ def _resolve_tier(prob: _Problem, tier, pweights) -> str:
         return active_tier(prob.geoms, pweights)
     if tier not in TIERS:
         raise ValueError(f"unknown solver tier {tier!r} (one of {TIERS})")
-    C = len(prob.geoms)
-    ok = {"mega": iter_step.supports(C, prob.H, prob.W, prob.samps,
-                                     sum(1 for p in pweights if p != 0.0)),
-          "two-lite": stripe_grad.supports(C, prob.H, prob.W, prob.samps)}
-    ok["mega-lite"] = ok["mega"]
-    if not ok.get(tier, True):
+    if not takes(tier, len(prob.geoms), prob.H, prob.W, prob.samps,
+                 sum(1 for p in pweights if p != 0.0)):
         raise ValueError(f"the {tier} tier does not take geometry "
                          f"{prob.H}x{prob.W} samps={prob.samps}")
     return tier
@@ -789,6 +871,37 @@ def solve_joint(
     return fdata, metrics
 
 
+def iter_chunk(iterations: int, listening: bool = True) -> int:
+    """Iterations per host-visible chunk of a solve: all of them when
+    nothing listens; while a progress bar or a CSV log does, one at a time
+    for solves of <= 16 iterations (the reference's bar ticks every
+    iteration, progressbar.c:37-47), else a twentieth of them within 8-50.
+    The one rule of the per-file pipeline, the striped solver and the
+    serving runner's buckets."""
+    if not listening:
+        return iterations
+    if iterations <= 16:
+        return 1
+    return max(8, min(50, iterations // 20 or iterations))
+
+
+def run_chunks(run, carry, nsteps: int, chunk: int, on_chunk=None):
+    """nsteps iterations as chunks of `chunk`: run(carry, n) -> (carry,
+    metrics [..., n, 4]) per chunk, then on_chunk(done_iterations,
+    metrics) on the host.  Returns (carry, the chunks' metrics joined on
+    the iteration axis, [0, 4] for none)."""
+    done, parts = 0, []
+    while done < nsteps:
+        n = min(chunk, nsteps - done)
+        carry, metrics = run(carry, n)
+        done += n
+        parts.append(metrics)
+        if on_chunk is not None:
+            on_chunk(done, metrics)
+    return carry, (np.concatenate(parts, axis=-2) if parts
+                   else np.zeros((0, 4), np.float32))
+
+
 def solve_joint_chunked(
     datas, quants, samps, weight, pweights, iterations,
     on_chunk=None, chunk: int | None = None,
@@ -798,32 +911,75 @@ def solve_joint_chunked(
 
     The reference ticks its progress bar and CSV log every iteration
     (compute.c:449-452, logger.c:20); here the loop runs as a sequence
-    of resumable chunks of the same iterations — identical to one
-    uninterrupted solve (the step size keys on the TOTAL iteration count
-    and the carry resumes exactly).  After each chunk,
-    `on_chunk(done_iterations, metrics_chunk)` fires on the host.
+    of resumable chunks of the same iterations (`chunk` each, default
+    iter_chunk) — identical to one uninterrupted solve (the step size keys
+    on the TOTAL iteration count and the carry resumes exactly).  After
+    each chunk, `on_chunk(done_iterations, metrics_chunk)` fires on the
+    host.
     """
     device = resolve_device(device)
     if chunk is None:
-        chunk = max(8, min(50, iterations // 20 or iterations))
+        chunk = iter_chunk(iterations, on_chunk is not None)
     with profiling.span("solve.setup") as sp:
         prob = _build_problem(datas, quants, samps, weight, pweights,
                               iterations, simd_compat_logging, device, sp)
         tier = _resolve_tier(prob, tier, pweights)
         carry = _initial_carry(prob, tier)
-    all_metrics = []
-    done = 0
     with profiling.span("solve.loop", tier=tier) as sp:
-        while done < iterations:
-            n = min(chunk, iterations - done)
-            carry, metrics = _run(prob, carry, n, tier, sp)
-            done += n
-            all_metrics.append(metrics)
-            if on_chunk is not None:
-                on_chunk(done, metrics)
-    metrics = (np.concatenate(all_metrics) if all_metrics
-               else np.zeros((0, 4), np.float32))
+        carry, metrics = run_chunks(
+            lambda c, n: _run(prob, c, n, tier, sp), carry, iterations,
+            chunk, on_chunk)
     return carry[0], metrics
+
+
+def solve_canvas(datas, quants, samps, canvas, weight, pweights, iterations,
+                 simd_compat_logging: bool = True, device="cuda",
+                 tier: str = "mega", chunk: int | None = None, on_chunk=None):
+    """n images of one sampling, each zero-padded into one [H, W] canvas
+    with its own true extent and step size as device values
+    (bucket_inputs), solved in dynamic-extent mode: together through K3
+    (tier "mega" or "mega-lite": up to MAX_IMAGES), or one image through
+    the lite pair ("two-lite").  The serving runner's dyn and dyn2
+    buckets.
+
+    The iterations run as chunks of `chunk` (default iter_chunk),
+    bit-identical to one shot; on_chunk(done_iterations, metrics [n, k,
+    4]) fires after each.  Returns (fdata [n, C, H, W] on `device`,
+    metrics [n, iterations, 4])."""
+    C, n = len(samps), len(datas)
+    if tier not in ("mega", "mega-lite", "two-lite") or not takes(
+            tier, C, *canvas, samps,
+            sum(1 for p in pweights[:C] if p != 0.0)):
+        raise ValueError(f"the {tier} tier does not take a {canvas[0]}x"
+                         f"{canvas[1]} bucket canvas at samps={samps}")
+    if tier == "two-lite" and n != 1:
+        raise ValueError("the lite pair solves one image at a time")
+    f0, dats, qs, extents, steps = bucket_inputs(
+        datas, quants, samps, canvas, iterations, resolve_device(device))
+    if tier == "two-lite":
+        # the lite pair's one image: no batch axis
+        f0, extents, steps = f0[0], extents[0], steps[0]
+        dats, qs = [x[0] for x in dats], [x[0] for x in qs]
+    p_alphas, total_alpha = objective_alphas(float(weight), pweights, C)
+    prob = _Problem(
+        geoms=tuple(ChannelGeometry(canvas[0] // (8 * sy),
+                                    canvas[1] // (8 * sx), sy, sx)
+                    for sy, sx in samps),
+        H=canvas[0], W=canvas[1], weight=float(weight), step_size=steps,
+        p_alphas=p_alphas, total_alpha=total_alpha,
+        simd_compat_logging=bool(simd_compat_logging), dats_c=dats,
+        qs_c=qs, f0=f0, extents=extents)
+    if chunk is None:
+        chunk = iter_chunk(iterations, on_chunk is not None)
+    each = None
+    if on_chunk is not None:
+        def each(done, metrics):
+            on_chunk(done, metrics.reshape(n, -1, 4))
+    carry, metrics = run_chunks(lambda c, k: _run(prob, c, k, tier),
+                                _initial_carry(prob, tier), iterations,
+                                chunk, each)
+    return (carry[0].reshape(n, C, *canvas),
+            metrics.reshape(n, iterations, 4))
 
 
 def solve_separate(

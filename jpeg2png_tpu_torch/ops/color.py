@@ -1,6 +1,7 @@
 """Color conversion for output.
 
-Matches write_png's YCbCr -> RGB with centered chroma and its exact
+canvas_pixels turns a solved canvas into output pixels.  It matches
+write_png's YCbCr -> RGB with centered chroma and its exact
 clamp-then-scale order (reference: png.c:37-62): luma has +128 re-added
 by the decode loop first (jpeg2png.c:156-159), chroma stays centered at 0,
 each RGB value is clamped to [0, 255] and only then scaled by
@@ -41,3 +42,16 @@ def ycbcr_to_rgb_packed(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
 def gray_packed(y: torch.Tensor, bits: int = 8) -> np.ndarray:
     """Grayscale output (capability beyond the 3-component-only reference)."""
     return _pack(y.clamp(0.0, 255.0) * ((1 << bits) / 256.0), bits)
+
+
+def canvas_pixels(channels, img, bits: int = 8) -> np.ndarray:
+    """A solved canvas -> output pixels, one fetch: `channels` ([C, H, W],
+    or C [H, W] planes; luma without its +128) cropped to the image's
+    height x width (`img`: a JpegImage), luma's +128 re-added
+    (jpeg2png.c:156-159), then gray, or YCbCr -> RGB for three channels."""
+    h, w = img.height, img.width
+    y = channels[0][:h, :w] + 128.0
+    if len(channels) == 1:
+        return gray_packed(y, bits)
+    return ycbcr_to_rgb_packed(y, channels[1][:h, :w], channels[2][:h, :w],
+                               bits)

@@ -345,9 +345,9 @@ def striped_steps(
     `iterations` is the TOTAL planned count (it fixes the step size).
 
     on_chunk(done_iterations, metrics_chunk), when given, runs the steps
-    as chunks of `chunk` iterations (default 8-50), called on every
-    process after each one: the carry, local distances included, resumes
-    exactly, so the result equals the one-shot run's.
+    as chunks of `chunk` iterations (default solver.iter_chunk), called on
+    every process after each one: the carry, local distances included,
+    resumes exactly, so the result equals the one-shot run's.
 
     Returns (fdata, metrics [nsteps, 4] numpy, carry): fdata is this
     process's rows of the [C, H, W] canvas (all of it in a single
@@ -355,24 +355,17 @@ def striped_steps(
     problem = _Striped(datas, quants, samps, weight, pweights, iterations,
                        simd_compat_logging, mesh, body)
     nsteps = iterations if nsteps is None else nsteps
-    if on_chunk is None:
-        chunk = nsteps
-    elif chunk is None:
-        chunk = max(8, min(50, nsteps // 20 or nsteps))
+    if on_chunk is None or chunk is None:
+        chunk = solver.iter_chunk(nsteps, on_chunk is not None)
     if carry is None:
         carry = problem.initial_carry()
     elif isinstance(carry[2][0], tuple) != (problem.body == "lite"):
         raise ValueError(f"the carry is not the {problem.body} body's")
-    done = 0
-    all_metrics = [np.zeros((0, 4), np.float32)]
-    while done < nsteps:
-        nn = min(chunk, nsteps - done)
-        carry, metrics = problem.run(carry, nn)
-        done += nn
-        all_metrics.append(metrics)
-        if on_chunk is not None:
-            on_chunk(done, metrics)
-    return problem.output(carry[0]), np.concatenate(all_metrics), carry
+    # the solver's chunk loop: every process runs the same chunks, so the
+    # band collectives keep their order
+    carry, metrics = solver.run_chunks(problem.run, carry, nsteps, chunk,
+                                       on_chunk)
+    return problem.output(carry[0]), metrics, carry
 
 
 def solve_striped(

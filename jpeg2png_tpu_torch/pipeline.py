@@ -15,15 +15,13 @@ import sys
 from typing import Optional
 
 import numpy as np
-import torch
 
 from jpeg2png_tpu_torch import resolve_device
 from jpeg2png_tpu_torch.io import (
     JpegImage, read_jpeg, require_supported, write_png)
 from jpeg2png_tpu_torch.models.solver import (
-    initial_decode, solve_joint, solve_joint_chunked)
-from jpeg2png_tpu_torch.ops.color import gray_packed, ycbcr_to_rgb_packed
-from jpeg2png_tpu_torch.ops.resample import upsample_nearest_clamped
+    canvas_inputs, solve_joint, solve_joint_chunked)
+from jpeg2png_tpu_torch.ops.color import canvas_pixels
 from jpeg2png_tpu_torch.parallel import distributed
 from jpeg2png_tpu_torch.parallel.mesh import available_devices, stripe_mesh
 from jpeg2png_tpu_torch.parallel.stripes import solve_striped
@@ -39,13 +37,8 @@ class DecodeResult:
     metrics_per_channel: dict   # channel id (3 = joint) -> [iters, 4]
 
 
-def _pack(channels, img: JpegImage, bits: int) -> np.ndarray:
-    h, w = img.height, img.width
-    y = channels[0][:h, :w] + 128.0
-    if len(channels) == 1:
-        return gray_packed(y, bits)
-    return ycbcr_to_rgb_packed(y, channels[1][:h, :w], channels[2][:h, :w],
-                               bits)
+# the name chip_smoke.py imports
+_pack = canvas_pixels
 
 
 def striped_mesh_for(stripes: int, device):
@@ -121,19 +114,17 @@ def smooth_decode(img: JpegImage, cfg: SolverConfig,
                 if metrics_stream:
                     metrics_stream(channel_id, done - chunk_metrics.shape[0],
                                    chunk_metrics)
-        # short solves (<= 16 iterations) tick per iteration, like the
-        # reference's bar (progressbar.c:37-47)
-        chunk = 1 if iters <= 16 else None
+        # chunks of solver.iter_chunk iterations
         if mesh is not None:
             fd, metrics = solve_striped(
                 ds, qs, ss, w, pw, iters, mesh, cfg.simd_compat_logging,
-                on_chunk=on_chunk, chunk=chunk)
+                on_chunk=on_chunk)
             # a multi-process result is sharded by rows: gathered once,
             # here at the end
             fd = distributed.gather_output(fd)
         elif on_chunk is not None:
             fd, metrics = solve_joint_chunked(
-                ds, qs, ss, w, pw, iters, on_chunk=on_chunk, chunk=chunk,
+                ds, qs, ss, w, pw, iters, on_chunk=on_chunk,
                 simd_compat_logging=cfg.simd_compat_logging, device=device,
                 tier=tier)
         else:
@@ -161,7 +152,7 @@ def smooth_decode(img: JpegImage, cfg: SolverConfig,
                 [datas[c]], [quants[c]], [samps[c]], s.weight, [s.pweight],
                 s.iterations, c)
             channels.append(fd[0])
-    return DecodeResult(pixels=_pack(channels, img, bits),
+    return DecodeResult(pixels=canvas_pixels(channels, img, bits),
                         metrics_per_channel=metrics_out)
 
 
@@ -206,14 +197,12 @@ def decode_file(
 
 def plain_decode(img: JpegImage, bits: int = 8, device="cuda") -> np.ndarray:
     """Baseline (blocky) decode without smoothing — the solver's starting
-    point, exposed for comparisons and tests (jpeg.c:83-92 + write_png)."""
-    device = resolve_device(device)
-    H = max(p.ph * p.h_samp for p in img.planes)
-    W = max(p.pw * p.w_samp for p in img.planes)
-    chans = []
-    for p in img.planes:
-        dec = initial_decode(
-            torch.as_tensor(p.data, device=device),
-            torch.as_tensor(p.quant.astype(np.float32), device=device))
-        chans.append(upsample_nearest_clamped(dec, p.h_samp, p.w_samp, H, W))
-    return _pack(chans, img, bits)
+    point (solver.canvas_inputs' f0), exposed for comparisons and tests
+    (jpeg.c:83-92 + write_png)."""
+    datas = [p.data for p in img.planes]
+    samps = [(p.h_samp, p.w_samp) for p in img.planes]
+    canvas = (max(p.ph * p.h_samp for p in img.planes),
+              max(p.pw * p.w_samp for p in img.planes))
+    f0, _, _, _ = canvas_inputs([datas], [[p.quant for p in img.planes]],
+                                samps, canvas, resolve_device(device))
+    return canvas_pixels(f0[0], img, bits)

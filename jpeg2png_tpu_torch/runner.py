@@ -8,17 +8,18 @@ runner (jpeg2png_tpu/runner.py:154-432, 778-942, 947-1126):
   * images are read on the host by a thread pool,
   * grouped into buckets by subsampling and a coarsened canvas shape:
     every member is zero-padded into the bucket canvas and carries its
-    true extent and step size as device values,
-  * the initial decode, the FREE/FROZEN quant rasters, the crop and the
-    colour conversion run on the device; each image's pixels are fetched
-    once.
+    true extent and step size as device values (models/solver.py builds
+    and solves them: solve_canvas, the set-up and the tiers' host loops
+    of single-image solves),
+  * the crop and the colour conversion run on the device
+    (ops/color.canvas_pixels); each image's pixels are fetched once.
 
 solver.tier_rule, the single-image tier rule applied to the bucket
 canvas, sorts each image into one of three classes:
 
   "dyn"    the bucket's tier is mega or mega-lite: up to 8 images of
-           different sizes per launch of K3 (kernels/iter_step.py) in
-           dynamic-extent mode, f32 or lite (solve_bucket);
+           different sizes per launch of K3 in dynamic-extent mode, f32
+           or lite (solve_bucket);
   "dyn2"   its two-lite bucket's tier is two-lite: one image at a time
            through K4 + K5 per iteration in dynamic-extent mode, on the
            shared bucket canvas (two_lite_bucket_for, solve_bucket_two);
@@ -37,7 +38,6 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import functools
-import math
 import threading
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -47,21 +47,15 @@ import torch
 
 from jpeg2png_tpu_torch import on_device, resolve_device
 from jpeg2png_tpu_torch.io import JpegImage, read_jpeg, require_supported
-from jpeg2png_tpu_torch.kernels import iter_step, stripe_grad
-from jpeg2png_tpu_torch.kernels.iter_step import fused_solve, fused_solve_lite
-from jpeg2png_tpu_torch.kernels.project_step import (
-    FREE_Q, fused_project_multi_lite)
-from jpeg2png_tpu_torch.kernels.stripe_grad import fused_grad_striped_lite
+from jpeg2png_tpu_torch.models import solver
 from jpeg2png_tpu_torch.models.solver import (
-    ChannelGeometry, canvas_shape, mega_metrics, objective_alphas,
-    solve_joint, tier_rule)
-from jpeg2png_tpu_torch.ops.color import gray_packed, ycbcr_to_rgb_packed
-from jpeg2png_tpu_torch.ops.dct_raster import idct_raster
+    ChannelGeometry, canvas_shape, solve_joint, takes, tier_rule)
+from jpeg2png_tpu_torch.ops.color import canvas_pixels
 from jpeg2png_tpu_torch.parallel import distributed
 from jpeg2png_tpu_torch.utils import profiling
 from jpeg2png_tpu_torch.utils.config import SolverConfig
 
-CHUNK_IMAGES = iter_step.MAX_BATCH   # images per K3 launch
+CHUNK_IMAGES = solver.MAX_IMAGES   # images per K3 launch
 # geometric size ladder for bucket coarsening (~1.2-1.5x steps): assorted
 # photo sizes collapse onto a handful of rungs at modest padding waste
 _BUCKET_LADDER = (128, 192, 256, 384, 512, 640, 768, 1024, 1280, 1536,
@@ -275,121 +269,34 @@ def two_lite_bucket_for(img: JpegImage) -> Optional[Tuple[int, int]]:
     samps = _samps(img)
     natural = _align(H, W, samps)
     if (natural[0] * natural[1] > 2 * H * W
-            or not stripe_grad.supports(len(samps), *natural, samps)):
+            or not takes("two-lite", len(samps), *natural, samps, 0)):
         return None
     return quantized_bucket_for(img)
 
 
-def _stage_image_host(planes, HB: int, WB: int):
-    """Host staging of one image for a bucket: the int16 coefficient
-    rasters zero-padded to the bucket coefficient shape, the 8x8 quant
-    tables and the coefficient-region extents.  Everything else is built
-    on the device by _bucket_init."""
-    dats, quants, regions = [], [], []
-    for p in planes:
-        hcb, wcb = HB // p.h_samp, WB // p.w_samp
-        nby, nbx = p.data.shape[:2]
-        dat = np.zeros((hcb, wcb), np.int16)
-        dat[:nby * 8, :nbx * 8] = np.moveaxis(
-            p.data, 2, 1).reshape(nby * 8, nbx * 8)
-        dats.append(dat)
-        quants.append(p.quant.astype(np.float32))
-        regions.append((nby * 8, nbx * 8))
-    return dats, quants, np.asarray(regions, np.int32)
+def _planes(images):
+    """Per image, per channel: (int16 coefficients, quant tables)."""
+    return ([[p.data for p in img.planes] for img in images],
+            [[p.quant for p in img.planes] for img in images])
 
 
-def _bucket_init(dats, quants, regions, exts, samps, bucket):
-    """On-device bucket init for a chunk of n images.
-
-    dats: per channel [n, hcb, wcb] int16; quants: per channel [n, 8, 8]
-    f32; regions: [n, C, 2] host ints (coefficient-region extents); exts:
-    [n, 2] host ints (true canvas extents).  Per image and channel:
-      * dequantize + IDCT the coefficient raster (jpeg.c:83-92),
-      * nearest-upsample with edge clamping to the true canvas and zero
-        beyond (aux_init's cy = MIN(y/h_samp, h-1), compute.c:296-302),
-      * the quant raster: the real table over the coefficient region,
-        FREE_Q over the region -> canvas gap, 0 over the bucket padding
-        (runner.py:471-530 of the JAX package).
-    Returns (f0 [n, C, HB, WB] f32, q rasters per channel [n, hcb, wcb]).
-    """
-    HB, WB = bucket
-    n = dats[0].shape[0]
-    dev = dats[0].device
-    f0 = torch.zeros((n, len(samps), HB, WB), device=dev)
-    q_rs = []
-    for c, (sy, sx) in enumerate(samps):
-        hcb, wcb = HB // sy, WB // sx
-        qt = quants[c].repeat(1, hcb // 8, wcb // 8)
-        rr = torch.arange(hcb, device=dev)[:, None]
-        cc = torch.arange(wcb, device=dev)[None, :]
-        q_c = torch.zeros((n, hcb, wcb), device=dev)
-        for b in range(n):
-            (rh, rw), (eh, ew) = regions[b][c], exts[b]
-            in_data = (rr < int(rh)) & (cc < int(rw))
-            in_canvas = (rr < int(eh) // sy) & (cc < int(ew) // sx)
-            q_c[b] = torch.where(in_data, qt[b], torch.where(
-                in_canvas, torch.full((), FREE_Q, device=dev),
-                torch.zeros((), device=dev)))
-            raster = idct_raster(dats[c][b].to(torch.float32) * qt[b])
-            ridx = torch.clamp(torch.arange(eh, device=dev) // sy,
-                               max=int(rh) - 1)
-            cidx = torch.clamp(torch.arange(ew, device=dev) // sx,
-                               max=int(rw) - 1)
-            f0[b, c, :eh, :ew] = raster.index_select(0, ridx).index_select(
-                1, cidx)
-        q_rs.append(q_c)
-    return f0, q_rs
-
-
-def _stage_images(images, bucket, iterations):
-    """Host staging of a bucket's images: (staged, true canvases, step
-    sizes).  The step size radius/sqrt(1 + iterations) keys on each
-    image's own canvas (compute.c:425)."""
-    HB, WB = bucket
+def _check_sampling(images) -> None:
+    """Raise ValueError unless every image has the first's sampling (the
+    solver checks that each fits the bucket canvas)."""
     samps = _samps(images[0])
-    staged, exts, steps = [], [], []
     for img in images:
-        H, W = _canvas(img)
-        if _samps(img) != samps or H > HB or W > WB:
-            raise ValueError(f"image canvas {H}x{W} samps={_samps(img)} "
-                             f"does not fit bucket {HB}x{WB} samps={samps}")
-        staged.append(_stage_image_host(img.planes, HB, WB))
-        exts.append((H, W))
-        steps.append(math.sqrt(float(H) * float(W)) / 2.0
-                     / math.sqrt(1.0 + iterations))
-    return staged, exts, steps
-
-
-def _upload_chunk(staged, exts, steps, samps, bucket, device):
-    """One chunk's device inputs for K3: (f0 [n, C, HB, WB], int16
-    rasters and quant rasters per channel [n, hcb, wcb], extents [n, 2]
-    int32, step sizes [n] f32)."""
-    C = len(samps)
-    dats = [torch.as_tensor(np.stack([s[0][c] for s in staged]),
-                            device=device) for c in range(C)]
-    qts = [torch.as_tensor(np.stack([s[1][c] for s in staged]),
-                           device=device) for c in range(C)]
-    f, q_rs = _bucket_init(dats, qts, [s[2] for s in staged], exts, samps,
-                           bucket)
-    ext = torch.as_tensor(np.asarray(exts, np.int32), device=device)
-    step = torch.as_tensor(np.asarray(steps, np.float32), device=device)
-    return f, dats, q_rs, ext, step
+        if _samps(img) != samps:
+            raise ValueError(f"image samps={_samps(img)} differ from the "
+                             f"bucket's samps={samps}")
 
 
 def prepare_chunk(images, bucket, iterations, device="cuda"):
     """K3's dynamic-extent inputs for up to 8 images of one bucket, as
-    solve_bucket builds them: (f0, int16 rasters, quant rasters, extents,
-    step sizes)."""
-    staged, exts, steps = _stage_images(images, bucket, iterations)
-    return _upload_chunk(staged, exts, steps, _samps(images[0]), bucket,
-                         resolve_device(device))
-
-
-def _default_iter_chunk(iterations: int, on_chunk) -> int:
-    if on_chunk is None:
-        return iterations
-    return 1 if iterations <= 16 else max(8, min(50, iterations // 20
-                                                 or iterations))
+    solve_bucket builds them (solver.bucket_inputs): (f0, int16 rasters,
+    quant rasters, extents, step sizes)."""
+    _check_sampling(images)
+    return solver.bucket_inputs(*_planes(images), _samps(images[0]), bucket,
+                                iterations, resolve_device(device))
 
 
 def bucket_dispatches(n_images: int, iterations: int,
@@ -397,35 +304,44 @@ def bucket_dispatches(n_images: int, iterations: int,
     """K3 launches solve_bucket makes for a bucket of n_images."""
     if iterations == 0:
         return 0
-    chunk = _default_iter_chunk(iterations, True if streamed else None)
+    chunk = solver.iter_chunk(iterations, streamed)
     return -(-n_images // CHUNK_IMAGES) * -(-iterations // chunk)
 
 
 class _CanvasSolve(_BucketSolve):
-    """The set-up the bucket-canvas classes (dyn, dyn2) share: the
-    objective's weights, each image staged into the bucket canvas with its
-    true extent and step size, the FISTA factors."""
+    """A bucket-canvas class (dyn, dyn2): each work item's images go
+    through solver.solve_canvas in the bucket canvas, each with its true
+    extent and step size, on the bucket's tier."""
 
     def __init__(self, images, bucket, weight, pweights, iterations,
                  simd_compat_logging, on_chunk, iter_chunk, finish):
         super().__init__(len(images), iterations, finish)
+        _check_sampling(images)
         self.samps = _samps(images[0])
         C = len(self.samps)
-        self.pa, self.total_alpha = objective_alphas(float(weight),
-                                                     pweights, C)
-        self.pa_ss = [self.pa[c] * sy * sx
-                      for c, (sy, sx) in enumerate(self.samps)]
-        self.check_gate(C, *bucket)
-        self.staged, self.exts, self.steps = _stage_images(images, bucket,
-                                                           iterations)
-        self.factors, _ = iter_step.fista_factors(1.0, int(iterations))
-        self.iter_chunk = (_default_iter_chunk(iterations, on_chunk)
-                           if iter_chunk is None else iter_chunk)
-        self.bucket, self.weight, self.iterations = bucket, weight, iterations
-        self.simd, self.on_chunk = simd_compat_logging, on_chunk
+        self.tier = self.bucket_tier(
+            C, *bucket, sum(1 for p in pweights[:C] if p != 0.0))
+        self.datas, self.quants = _planes(images)
+        self.chunk = (solver.iter_chunk(iterations, on_chunk is not None)
+                      if iter_chunk is None else iter_chunk)
+        self.args = (bucket, weight, pweights, iterations,
+                     simd_compat_logging)
+        self.on_chunk = on_chunk
 
-    def check_gate(self, C, HB, WB):
+    def bucket_tier(self, C, HB, WB, n_prob) -> str:
         raise NotImplementedError
+
+    def solve(self, members, device):
+        on_chunk = None
+        if self.on_chunk is not None:
+            def on_chunk(done, metrics):
+                self.on_chunk(members, done, metrics)
+        f, self.metrics[members] = solver.solve_canvas(
+            [self.datas[m] for m in members],
+            [self.quants[m] for m in members], self.samps, *self.args,
+            device=device, tier=self.tier, chunk=self.chunk,
+            on_chunk=on_chunk)
+        return f
 
 
 class _DynSolve(_CanvasSolve):
@@ -433,48 +349,15 @@ class _DynSolve(_CanvasSolve):
     CHUNK_IMAGES images, formed as one device forms them (K3's plan, and
     so the order of its partial sums, depends on the chunk's size)."""
 
-    def check_gate(self, C, HB, WB):
-        P = sum(1 for p in self.pa_ss if p != 0.0)
-        if not iter_step.supports(C, HB, WB, self.samps, P):
-            raise ValueError(f"bucket {HB}x{WB} samps={self.samps} is "
-                             "outside the whole-solve kernel's gate")
-        self.lite = tier_rule(C, HB, WB, self.samps, P) == "mega-lite"
+    def bucket_tier(self, C, HB, WB, n_prob):
+        if tier_rule(C, HB, WB, self.samps, n_prob) == "mega-lite":
+            return "mega-lite"
+        return "mega"
 
     def items(self):
-        B = len(self.staged)
+        B = len(self.datas)
         return [list(range(i, min(i + CHUNK_IMAGES, B)))
                 for i in range(0, B, CHUNK_IMAGES)]
-
-    def solve(self, members, device):
-        side = torch.bfloat16 if self.lite else torch.float32
-        solve = fused_solve_lite if self.lite else fused_solve
-        f, dats, q_rs, ext, step = _upload_chunk(
-            [self.staged[m] for m in members], [self.exts[m] for m in members],
-            [self.steps[m] for m in members], self.samps, self.bucket,
-            device)
-        # the FISTA shadow: fista = f, or the lite difference d = 0
-        fi = torch.zeros_like(f, dtype=side) if self.lite else f
-        devqs = [torch.zeros_like(q_rs[c], dtype=side)
-                 for c in range(len(self.samps)) if self.pa_ss[c] != 0.0]
-        prob_prev = np.zeros((len(members),), np.float32)
-        done, iterations = 0, self.iterations
-        while done < iterations:
-            n = min(self.iter_chunk, iterations - done)
-            f, fi, devqs, partials = solve(
-                f, fi, devqs, self.factors[done:done + n], step, dats, q_rs,
-                self.pa_ss, self.samps, self.weight, extents=ext)
-            partials_np = partials.cpu().numpy()
-            for bi, m in enumerate(members):
-                # fresh start: prob row 0 is exactly 0 (compute.c:279-286);
-                # chunk boundaries carry the one-row prob shift
-                self.metrics[m, done:done + n], prob_prev[bi] = mega_metrics(
-                    partials_np[bi], prob_prev[bi], self.pa,
-                    self.total_alpha, self.simd)
-            done += n
-            if self.on_chunk is not None:
-                self.on_chunk(members, done,
-                              self.metrics[members, done - n:done])
-        return f
 
 
 def solve_bucket(
@@ -500,8 +383,8 @@ def solve_bucket(
     step size (radius of its own canvas / sqrt(1 + iterations),
     compute.c:425) ride in as device values.  Images go through in
     chunks of up to 8 per launch; with `on_chunk`, iterations run in
-    resumable chunks (`iter_chunk` each; the single-file pipeline's 8-50
-    default), bit-identical to one-shot, and
+    resumable chunks (`iter_chunk` each; default solver.iter_chunk, the
+    single-file pipeline's rule), bit-identical to one-shot, and
     `on_chunk(member_indices, done_iterations, metrics_chunk)` fires
     after each.
 
@@ -523,54 +406,11 @@ def solve_bucket(
 class _Dyn2Solve(_CanvasSolve):
     """A dyn2 bucket (solve_bucket_two): one image per work item."""
 
-    def check_gate(self, C, HB, WB):
-        if not stripe_grad.supports(C, HB, WB, self.samps):
-            raise ValueError(f"bucket {HB}x{WB} samps={self.samps} is "
-                             "outside the lite kernels' gate")
-        self.prob_cs = [c for c in range(C) if self.pa_ss[c] != 0.0]
-        # partials rows [sumsq C, tv, tv2, dists C] -> mega_metrics' columns
-        self.cols = list(range(C + 2)) + [C + 2 + c for c in self.prob_cs]
+    def bucket_tier(self, C, HB, WB, n_prob):
+        return "two-lite"
 
     def items(self):
-        return [[m] for m in range(len(self.staged))]
-
-    def solve(self, members, device):
-        (m,) = members
-        HB, WB = self.bucket
-        f, dats, q_rs, ext, step = _upload_chunk(
-            [self.staged[m]], [self.exts[m]], [self.steps[m]], self.samps,
-            self.bucket, device)
-        f, ext, step = f[0], ext[0], step[0]
-        dats = [x[0] for x in dats]
-        q_rs = [x[0] for x in q_rs]
-        d = torch.zeros_like(f, dtype=torch.bfloat16)
-        devqs = [torch.zeros_like(q_rs[c], dtype=torch.bfloat16)
-                 for c in self.prob_cs]
-        prob_prev = np.float32(0.0)
-        done, iterations = 0, self.iterations
-        while done < iterations:
-            n = min(self.iter_chunk, iterations - done)
-            rows = []
-            for factor in self.factors[done:done + n]:
-                grads, sumsq, tv, tv2 = fused_grad_striped_lite(
-                    f, d, devqs, None, float(factor), 0, self.weight,
-                    self.samps, self.pa_ss, HB, HB, WB, extents=ext)
-                norms = torch.sqrt(sumsq)
-                scale = torch.where(norms == 0.0, 0.0, step / norms)
-                f, d, dq_out, dists = fused_project_multi_lite(
-                    f, d, grads, float(factor), scale, dats, q_rs,
-                    self.pa_ss, self.samps)
-                devqs = [x for x in dq_out if x is not None]
-                rows.append(torch.cat([sumsq, tv.reshape(1),
-                                       tv2.reshape(1), dists]))
-            # the chunk's one device -> host fetch
-            partials = torch.stack(rows).cpu().numpy()[:, self.cols]
-            self.metrics[m, done:done + n], prob_prev = mega_metrics(
-                partials, prob_prev, self.pa, self.total_alpha, self.simd)
-            done += n
-            if self.on_chunk is not None:
-                self.on_chunk([m], done, self.metrics[[m], done - n:done])
-        return f[None]
+        return [[m] for m in range(len(self.datas))]
 
 
 def solve_bucket_two(
@@ -646,15 +486,6 @@ def solve_batched(
     job = _ExactSolve(datas, quants, samps, weight, pweights, iterations,
                       simd_compat_logging)
     return _solve_on_cards(job, data_parallel, devices, device)
-
-
-def _pixels(fd: torch.Tensor, img: JpegImage, bits: int) -> np.ndarray:
-    """Crop + colour on the device, one fetch (ops/color.py)."""
-    h, w = img.height, img.width
-    if img.nchannel == 1:
-        return gray_packed(fd[0, :h, :w] + 128.0, bits)
-    return ycbcr_to_rgb_packed(fd[0, :h, :w] + 128.0, fd[1, :h, :w],
-                               fd[2, :h, :w], bits)
 
 
 def plan_buckets(images: Sequence[Optional[JpegImage]],
@@ -839,7 +670,7 @@ def decode_files_batched(
         jobs = []
 
         def emit(i, fd):
-            pix = _pixels(fd, images[i], bits)
+            pix = canvas_pixels(fd, images[i], bits)
             if on_pixels is None:
                 out[infiles[i]] = pix
             else:
@@ -872,9 +703,7 @@ def decode_files_batched(
             try:
                 if key[0] == "exact":
                     job = _ExactSolve(
-                        [[p.data for p in im.planes] for im in imgs],
-                        [[p.quant for p in im.planes] for im in imgs],
-                        _samps(imgs[0]), *args,
+                        *_planes(imgs), _samps(imgs[0]), *args,
                         on_chunk=on_chunk if streamed else None,
                         finish=finish)
                 else:

@@ -4,9 +4,10 @@ Same UX as the reference's 70-column bar with redraw suppression
 (reference: progressbar.c:6-66): only repaints when the filled-char
 count or the percentage changes.  The reference ticks once per
 iteration from inside the hot loop (compute.c:449-452); here the
-device loop runs as resumable chunks and the host ticks after each —
-per iteration for short solves (<= 16 iterations), per 8-50-iteration
-chunk beyond that.
+device loop runs as resumable chunks and the host ticks after each, in
+chunks of models/solver.py::iter_chunk iterations (per iteration for
+short solves of <= 16 iterations, iterations/20 within 8-50 beyond
+that), for single files and serving buckets alike.
 """
 
 from __future__ import annotations

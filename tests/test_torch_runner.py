@@ -16,6 +16,7 @@ from jpeg2png_tpu.models import solver as jsolver  # noqa: E402
 from jpeg2png_tpu.utils import corpus as jcorpus  # noqa: E402
 from jpeg2png_tpu_torch import runner  # noqa: E402
 from jpeg2png_tpu_torch.io import read_jpeg  # noqa: E402
+from jpeg2png_tpu_torch.kernels.project_step import FREE_Q  # noqa: E402
 from jpeg2png_tpu_torch.models import solver  # noqa: E402
 from jpeg2png_tpu_torch.pipeline import smooth_decode  # noqa: E402
 from jpeg2png_tpu_torch.utils import corpus  # noqa: E402
@@ -89,6 +90,44 @@ def test_torch_solve_bucket_chunks_and_finish(fixtures_dir):
         np.testing.assert_array_equal(got[m].numpy(), one.fdata[m].numpy())
     assert runner.bucket_dispatches(2, 5, False) == 1
     assert runner.bucket_dispatches(9, 50, True) == 2 * 7
+
+
+@pytest.mark.parametrize("name,gap", [
+    ("lineart64_q20_420", False), ("photo80_q30_422", False),
+    ("photo72_q85_444", False), ("gray64_q30", False),
+    ("odd100x52_q25_420", True)])
+def test_torch_bucket_setup_equals_single_image_setup(fixtures_dir, name,
+                                                      gap):
+    """A bucket of one image on its own canvas builds exactly the single
+    image's K3 inputs and f0 (int16 rasters, quant rasters with FREE_Q over
+    a region gap, the upsampled initial decode), its extent the canvas and
+    its step size the single solve's in f32; on a larger bucket canvas the
+    same values sit at the top left, with 0 beyond the image."""
+    img = read_jpeg(fixtures_dir / f"{name}.jpg")
+    prob = solver._build_problem(*_args(img), 0.3, [0.001] * 3, 50, True,
+                                 torch.device("cpu"))
+    own = (prob.H, prob.W)
+    assert any(bool((q == FREE_Q).any()) for q in prob.qs_c) == gap
+    f0, dats, qs, ext, step = runner.prepare_chunk([img], own, 50, "cpu")
+    assert torch.equal(f0[0], prob.f0)
+    for c in range(img.nchannel):
+        assert torch.equal(dats[c][0], prob.dats_c[c])
+        assert torch.equal(qs[c][0], prob.qs_c[c])
+    assert ext.tolist() == [list(own)]
+    assert step.dtype == torch.float32
+    assert step.tolist() == [float(np.float32(prob.step_size))]
+    big = (own[0] + 32, own[1] + 64)
+    f0, dats, qs, _, _ = runner.prepare_chunk([img], big, 50, "cpu")
+    assert torch.equal(f0[0, :, :own[0], :own[1]], prob.f0)
+    f0[0, :, :own[0], :own[1]] = 0
+    assert not f0.any()
+    for c, (sy, sx) in enumerate(prob.samps):
+        hc, wc = own[0] // sy, own[1] // sx
+        for got, want in ((dats[c][0], prob.dats_c[c]),
+                          (qs[c][0], prob.qs_c[c])):
+            assert torch.equal(got[:hc, :wc], want)
+            got[:hc, :wc] = 0
+            assert not got.any()
 
 
 def test_torch_corpus_buckets():
